@@ -1,29 +1,39 @@
 import faulthandler; faulthandler.dump_traceback_later(300, exit=True)  # noqa: E702  watchdog: a hang exits 1 with a traceback
 
-# Smoke run of the PyTorch port on one NVIDIA GPU: build the CUDA kernel,
-# hold it against its plain version, and drive the serving path end to end.
+# Smoke run of the PyTorch port on one NVIDIA GPU: build the CUDA kernels,
+# hold each against its plain version, and drive the serving paths end to end.
 #
 #     python3 chip_smoke.py
 #
 # Runs from the root of a checkout with no install, network or git. Builds
-# ``ikflow_tpu_torch/csrc/fused_mlp.cu`` with nvcc into ``build/``, loads
-# ``panda__full__sigmoid`` (12 GLOW blocks, subnets 10/11 -> 1024 x 3 -> 8/6,
-# fp32) from ``models/panda__full_sigmoid.npz``, and runs:
+# ``ikflow_tpu_torch/csrc/fused_mlp.cu`` (K1, fp32) and ``fused_mlp_bf16.cu``
+# (K1', bf16 hidden layers) with one nvcc each, in parallel, into ``build/``,
+# loads ``panda__full__sigmoid`` (12 GLOW blocks, subnets 10/11 -> 1024 x 3 ->
+# 8/6, fp32) from ``models/panda__full_sigmoid.npz``, and runs:
 #
 # 1. device: the card, its power limit and the TF32 flags;
-# 2. kernel vs plain: the fused subnet MLP against addmm + leaky_relu on the
-#    shipped weights of block 0, at the batch sizes the serving path gives it;
-# 3. approx: ``generate_ik_solutions`` on 1000 poses (24 kernel launches);
-# 4. exact: ``generate_exact_ik_solutions`` on 1000 reachable poses, tiers
+# 2. kernel_vs_plain: K1 against addmm + leaky_relu on the shipped weights of
+#    block 0, at the batch sizes the serving path gives it;
+# 3. kernel_vs_plain_bf16: K1' against its plain bf16 version, the same way;
+# 4. approx: ``generate_ik_solutions`` on 1000 poses (24 K1 launches);
+# 5. exact: ``generate_exact_ik_solutions`` on 1000 reachable poses, tiers
 #    (1, 3, 10), 3 LM steps, 1 mm / 0.01 rad, checked by an independent float64
 #    forward kinematics;
-# 5. profile: device time by kernel over a second, traced exact solve;
-# 6. flow_vs_cpu: the card's flow against the plain flow on the CPU, 64 rows.
+# 6. profile: device time by kernel over a second, traced exact solve;
+# 7. flow_vs_cpu: the card's flow against the plain flow on the CPU, 64 rows;
+# 8. approx_bf16, exact_bf16, profile_bf16, flow_vs_cpu_bf16: the same through
+#    a solver built with ``hp.bf16_hidden = True`` on the same weights (K1');
+# 9. megabatch: 100000 reachable poses through ``solve_exact_megabatch``;
+# 10. diverse: ``generate_diverse_ik_solutions`` for one pose;
+# 11. kernel_vs_plain_paths: K1 against addmm + leaky_relu at the row counts
+#     the megabatch and diverse paths gave it.
 #
 # Every phase prints one JSON line; any failed check raises. The last line is
 # ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero and
 # prints no result.
 
+import concurrent.futures  # noqa: E402
+import dataclasses  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import subprocess  # noqa: E402
@@ -41,10 +51,31 @@ N_POSES = 1000
 KERNEL_ATOL = 1e-4  # fp32 sums over K = 1024 in another order than cuBLAS
 KERNEL_RTOL = 1e-4
 FLOW_ATOL = 1e-3  # kernel flow on the card vs plain flow on the CPU, radians, after 24 subnets
+# K1' vs its plain version: both round the same operands to bf16 and sum exact
+# products in fp32, in another order, so an activation within an fp32 ulp of a
+# bf16 rounding boundary can round the other way (one bf16 ulp) in the next
+# layer, and every output of that row moves. The share condition is what tells
+# the precision apart: most outputs agree to KERNEL_BF16_TIGHT (measured on the
+# shipped weights: 97.0-97.7%, against 3.5-3.8% for the fp32 subnet from 1000
+# rows up). All agree to _LOOSE, the measured maximum with margin (at most
+# 5.8e-3, at 32768 rows; more rows draw more flips).
+KERNEL_BF16_TIGHT = 1e-5
+KERNEL_BF16_TIGHT_SHARE = 0.9
+KERNEL_BF16_LOOSE = 1e-2
+# The bf16 flow on the card vs the plain bf16 flow on the CPU, radians: such
+# flips, in 2 x 1024 activations of each of 24 subnets, compound through the
+# couplings' exp. Measured on 64 rows: max 1.04e-2, mean 4.4e-4. The fp32 flow
+# differs from the card's bf16 flow by max 8.5e-2, mean 2.5e-3, so both bounds
+# sit between the two readings.
+FLOW_BF16_ATOL = 2e-2
+FLOW_BF16_MEAN_ATOL = 1e-3
+N_MEGABATCH = 100000
 FK_SLACK_POS = 1e-5  # float64 recheck of fp32 solutions: metres
 FK_SLACK_ROT = 1e-4  # radians
-# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3.
+# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, dense bf16
+# on the tensor cores, HBM3.
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
 
@@ -76,6 +107,22 @@ def subnet_bound(B, layers):
                   + sum(lay["w"].numel() + lay["b"].numel() for lay in layers))
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops
+
+
+def subnet_bound_bf16(B, layers):
+    """K1': the hidden layers' FLOP at the bf16 tensor-core peak plus the first
+    and last layers' at the fp32 peak, against x, out, the fp32 first/last
+    weights, the bf16 hidden weights and the biases, each moved once."""
+    hidden = layers[1:-1]
+    edge = [layers[0], layers[-1]]
+    flops16 = 2 * B * sum(lay["w"].shape[0] * lay["w"].shape[1] for lay in hidden)
+    flops32 = 2 * B * sum(lay["w"].shape[0] * lay["w"].shape[1] for lay in edge)
+    nbytes = (4 * (B * layers[0]["w"].shape[0] + B * layers[-1]["w"].shape[1])
+              + 4 * sum(lay["w"].numel() for lay in edge) + 2 * sum(lay["w"].numel() for lay in hidden)
+              + 4 * sum(lay["b"].numel() for lay in layers))
+    t_ops = flops16 / PEAK_BF16_FLOPS + flops32 / PEAK_FP32_FLOPS
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops16 + flops32
 
 
 def fk64(joints, q):
@@ -113,6 +160,33 @@ def quat_to_matrix64(quat):
     ], axis=-1).reshape(-1, 3, 3)
 
 
+def fk64_errors(robot, sols, targets):
+    """Float64 recheck of (n, ndof) solutions against (n, 7) targets (numpy):
+    -> (position errors [m], rotation errors [rad])."""
+    R, p = fk64(robot.joints, sols)
+    pos = np.linalg.norm(p - targets[:, :3], axis=-1)
+    Rt = quat_to_matrix64(targets[:, 3:] / np.linalg.norm(targets[:, 3:], axis=-1, keepdims=True))
+    cos = (np.einsum("nij,nij->n", Rt, R) - 1.0) / 2.0
+    return pos, np.arccos(np.clip(cos, -1.0, 1.0))
+
+
+def check_solutions(robot, sols, valids, targets, min_fraction, rot_tol):
+    """The contract on host arrays: the valid share, every valid solution inside
+    the limits and within 1 mm / ``rot_tol`` under float64 FK. -> summary."""
+    v = np.asarray(valids)
+    s = np.asarray(sols, dtype=np.float64)[v]
+    t = np.asarray(targets, dtype=np.float64)[v]
+    low = robot.limits_low().double().numpy()
+    high = robot.limits_high().double().numpy()
+    check(v.mean() >= min_fraction, f"only {v.sum()}/{v.size} poses solved")
+    check(bool(((s >= low - 1e-6) & (s <= high + 1e-6)).all()), "a valid solution lies outside the joint limits")
+    pos64, rot64 = fk64_errors(robot, s, t)
+    check(float(pos64.max()) <= 1e-3 + FK_SLACK_POS, f"float64 FK recheck: max pos err {pos64.max()}")
+    check(float(rot64.max()) <= rot_tol + FK_SLACK_ROT, f"float64 FK recheck: max rot err {rot64.max()}")
+    return {"valid": int(v.sum()), "valid_fraction": float(v.mean()),
+            "fk64_max_pos_err_mm": 1e3 * float(pos64.max()), "fk64_max_rot_err_deg": float(np.degrees(rot64.max()))}
+
+
 def profile_exact(solver, targets, g):
     """Device time by kernel over one exact solve, from torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
@@ -134,13 +208,68 @@ def profile_exact(solver, targets, g):
     if not kernels:
         return {"wall_ms": wall_ms, "device_ms": "not measured"}
     device_ms = sum(ms for ms, _ in kernels.values())
-    mlp_ms = sum(ms for k, (ms, _) in kernels.items() if "fused_mlp" in k)
+    k1_ms = sum(ms for k, (ms, _) in kernels.items() if "fused_mlp_kernel" in k)
+    k1b_ms = sum(ms for k, (ms, _) in kernels.items() if "fused_mlp_bf16_kernel" in k)
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
     return {
         "wall_ms": wall_ms, "device_ms": device_ms, "idle_share": 1.0 - device_ms / wall_ms,
-        "kernel_launches": sum(c for _, c in kernels.values()), "fused_mlp_ms": mlp_ms,
-        "fused_mlp_share_of_device": mlp_ms / device_ms,
+        "kernel_launches": sum(c for _, c in kernels.values()),
+        "fused_mlp_ms": k1_ms, "fused_mlp_share_of_device": k1_ms / device_ms,
+        "fused_mlp_bf16_ms": k1b_ms, "fused_mlp_bf16_share_of_device": k1b_ms / device_ms,
         "top": [{"kernel": k[:80], "ms": ms, "count": c} for k, (ms, c) in top],
+    }
+
+
+def kernel_rows(kernel, plain, bound, params, batches, gen, close, contrast=None):
+    """A kernel against its plain version on block 0's subnets of ``params``,
+    and, where given, against a ``contrast`` function it must not match:
+    -> (rows, max abs err, the B = 10000 s1 row)."""
+    dev = torch.device("cuda")
+    rows, max_err, headline = [], 0.0, None
+    for B in batches:
+        for sname in ("s1", "s2"):
+            layers = params[0][sname]
+            x = torch.randn((B, layers[0]["w"].shape[0]), generator=gen, device=dev)
+            out_k = kernel(x, layers)
+            torch.cuda.synchronize()
+            out_p = plain(x, layers)
+            err = (out_k - out_p).abs()
+            check(bool(torch.isfinite(out_k).all()), f"non-finite kernel output at B={B} {sname}")
+            close(out_k, out_p, f"kernel disagrees with plain at B={B} {sname}: max abs err {float(err.max())}")
+            iters = 20 if B >= 10000 else 50
+            ms = cuda_ms(lambda: kernel(x, layers), iters)
+            plain_ms = cuda_ms(lambda: plain(x, layers), iters)
+            bound_ms, bound_by, flops = bound(B, layers)
+            row = {"B": B, "subnet": sname, "shape": [layers[0]["w"].shape[0], layers[-1]["w"].shape[1]],
+                   "max_abs_err": float(err.max()), "share_within_1e-5": float((err <= 1e-5).float().mean()),
+                   "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                   "kernel_tflops": flops / ms / 1e9}
+            if contrast is not None:
+                other = (out_k - contrast(x, layers)).abs()
+                row["contrast_max_abs_err"] = float(other.max())
+                row["contrast_share_within_1e-5"] = float((other <= 1e-5).float().mean())
+            rows.append(row)
+            max_err = max(max_err, row["max_abs_err"])
+            if B == 10000 and sname == "s1":
+                headline = row
+    return rows, max_err, headline
+
+
+def kernel_entry(name, specialization, source, launches, max_err, headline):
+    return {
+        "name": name,
+        "specialization": specialization,
+        "route": "cuda",
+        "source": source,
+        "replaces": "ikflow_tpu/flow/pallas_subnet.py:97",
+        "launches": launches,
+        "max_abs_err": max_err,
+        "ms": headline["ms"],
+        "plain_ms": headline["plain_ms"],
+        "bound_ms": headline["bound_ms"],
+        "bound_by": headline["bound_by"],
+        "library_ms": None,
+        "at": {"B": headline["B"], "subnet": headline["subnet"]},
     }
 
 
@@ -149,16 +278,27 @@ def main():
         sys.exit("chip_smoke: no CUDA device available; this script runs on the GPU only")
 
     from ikflow_tpu_torch import cuda_build
-    from ikflow_tpu_torch.flow.fused_subnet import fused_mlp, fused_mlp_plain
+    from ikflow_tpu_torch.flow.fused_subnet import (
+        fused_mlp,
+        fused_mlp_bf16,
+        fused_mlp_bf16_plain,
+        fused_mlp_plain,
+    )
+    from ikflow_tpu_torch.parallel.fleet import solve_exact_megabatch
     from ikflow_tpu_torch.registry import get_ik_solver
+    from ikflow_tpu_torch.solver import IKFlowSolver
 
     t_all = time.perf_counter()
 
-    # Build: one nvcc per source, with its resource report.
+    # Build: one nvcc per source, all started together, with their resource reports.
     t0 = time.perf_counter()
-    res = cuda_build.build("fused_mlp")
-    print(res.log.strip(), flush=True)
-    emit("build", t0, library=os.path.relpath(res.path, ROOT), nvcc_seconds=round(res.seconds, 3))
+    names = ("fused_mlp", "fused_mlp_bf16")
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        builds = dict(zip(names, pool.map(cuda_build.build, names)))
+    for res in builds.values():
+        print(res.log.strip(), flush=True)
+    emit("build", t0, libraries={n: os.path.relpath(r.path, ROOT) for n, r in builds.items()},
+         nvcc_seconds={n: round(r.seconds, 3) for n, r in builds.items()})
 
     # 1. device
     t0 = time.perf_counter()
@@ -167,6 +307,8 @@ def main():
         capture_output=True, text=True, timeout=30, check=True,
     ).stdout.strip().splitlines()[0]
     solver, hp = get_ik_solver(MODEL, device="cuda")
+    hp_bf16 = dataclasses.replace(hp, bf16_hidden=True)
+    solver_bf16 = IKFlowSolver(hp_bf16, solver.robot, params=solver.params, device="cuda")
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     emit("device", t0, nvidia_smi=smi, name=kind, count=torch.cuda.device_count(),
@@ -175,114 +317,167 @@ def main():
          model=MODEL, blocks=hp.nb_nodes, width=hp.coeff_fn_internal_size)
     check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32, "TF32 must be off")
 
-    # 2. kernel vs plain on the shipped weights of block 0.
+    # 2. K1 vs plain on the shipped weights of block 0.
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(0)
-    rows, max_err, headline = [], 0.0, None
-    for B in (1000, 3000, 10000, 1):  # tier 1, 2 and 3 of 1000 poses, and one pose
-        for sname in ("s1", "s2"):
-            layers = solver.params[0][sname]
-            x = torch.randn((B, layers[0]["w"].shape[0]), generator=gen, device=dev)
-            out_k = fused_mlp(x, layers)
-            torch.cuda.synchronize()
-            out_p = fused_mlp_plain(x, layers)
-            err = float((out_k - out_p).abs().max())
-            check(bool(torch.isfinite(out_k).all()), f"non-finite kernel output at B={B} {sname}")
-            check(torch.allclose(out_k, out_p, atol=KERNEL_ATOL, rtol=KERNEL_RTOL),
-                  f"kernel disagrees with plain at B={B} {sname}: max abs err {err}")
-            iters = 20 if B >= 10000 else 50
-            ms = cuda_ms(lambda: fused_mlp(x, layers), iters)
-            plain_ms = cuda_ms(lambda: fused_mlp_plain(x, layers), iters)
-            bound_ms, bound_by, flops = subnet_bound(B, layers)
-            row = {"B": B, "subnet": sname, "shape": [layers[0]["w"].shape[0], layers[-1]["w"].shape[1]],
-                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                   "kernel_tflops": flops / ms / 1e9}
-            rows.append(row)
-            max_err = max(max_err, err)
-            if B == 10000 and sname == "s1":
-                headline = row
+
+    def close_fp32(out_k, out_p, msg):
+        check(torch.allclose(out_k, out_p, atol=KERNEL_ATOL, rtol=KERNEL_RTOL), msg)
+
+    rows, max_err, headline = kernel_rows(fused_mlp, fused_mlp_plain, subnet_bound, solver.params,
+                                          (1000, 3000, 10000, 1), gen, close_fp32)  # tiers 1-3 of 1000 poses, one pose
     emit("kernel_vs_plain", t0, atol=KERNEL_ATOL, rtol=KERNEL_RTOL, rows=rows)
+
+    # 3. K1' vs its plain version on the same weights, packed once by the bf16 solver.
+    t0 = time.perf_counter()
+
+    def close_bf16(out_k, out_p, msg):
+        err = (out_k - out_p).abs()
+        check(float(err.max()) <= KERNEL_BF16_LOOSE, msg)
+        check(float((err <= KERNEL_BF16_TIGHT).float().mean()) >= KERNEL_BF16_TIGHT_SHARE,
+              f"{msg}: under {KERNEL_BF16_TIGHT_SHARE} of outputs within {KERNEL_BF16_TIGHT}")
+
+    rows_b, max_err_b, headline_b = kernel_rows(fused_mlp_bf16, fused_mlp_bf16_plain, subnet_bound_bf16,
+                                                solver_bf16._kernel_params, (1, 1000, 3000, 10000, 32768), gen,
+                                                close_bf16, contrast=fused_mlp_plain)
+    emit("kernel_vs_plain_bf16", t0, tight=KERNEL_BF16_TIGHT, tight_share=KERNEL_BF16_TIGHT_SHARE,
+         loose=KERNEL_BF16_LOOSE, contrast="fused_mlp_plain (fp32)", rows=rows_b)
 
     # Targets: FK of in-limit samples, as the JAX package's contract draws them.
     robot = solver.robot
     g = torch.Generator(device=dev).manual_seed(42)
     q_gt = robot.sample_joint_angles(N_POSES, g, joint_limit_eps=0.02)
     targets = robot.forward_kinematics(q_gt)
+    exact_kw = dict(repeat_counts=(1, 3, 10), pos_error_threshold=1e-3, rot_error_threshold=0.01,
+                    n_opt_steps_max=3, return_tier_counts=True)
 
-    # 3. approx: the main path starts here, so the count starts at 0.
-    fused_mlp.launches = 0
-    t0 = time.perf_counter()
-    sols, pos_err, rot_err, jle = solver.generate_ik_solutions(targets, generator=g, return_detailed=True)
-    torch.cuda.synchronize()
-    approx_s = time.perf_counter() - t0
-    approx_launches = fused_mlp.launches
-    check(tuple(sols.shape) == (N_POSES, robot.ndof) and bool(torch.isfinite(sols).all()), "bad approx solutions")
-    check(not bool(jle.any()), "approx solutions outside joint limits")
-    check(approx_launches == 2 * hp.nb_nodes, f"expected {2 * hp.nb_nodes} launches, got {approx_launches}")
-    emit("approx", t0, n=N_POSES, wall_s=approx_s, kernel_launches=approx_launches,
-         mean_pos_err_mm=1e3 * float(pos_err.mean()), mean_rot_err_deg=float(torch.rad2deg(rot_err).mean()))
+    def approx_and_exact(slv, phase, kernel, other):
+        """The main path of one solver: approx then exact, with the kernels'
+        counts set to 0 just before and read just after. -> (launches, tiers)."""
+        kernel.launches = 0
+        other.launches = 0
+        t0 = time.perf_counter()
+        sols, pos_err, rot_err, jle = slv.generate_ik_solutions(targets, generator=g, return_detailed=True)
+        torch.cuda.synchronize()
+        approx_s = time.perf_counter() - t0
+        approx_launches = kernel.launches
+        check(tuple(sols.shape) == (N_POSES, robot.ndof) and bool(torch.isfinite(sols).all()), "bad approx solutions")
+        check(not bool(jle.any()), "approx solutions outside joint limits")
+        check(approx_launches == 2 * hp.nb_nodes, f"expected {2 * hp.nb_nodes} launches, got {approx_launches}")
+        emit(f"approx{phase}", t0, n=N_POSES, wall_s=approx_s, kernel_launches=approx_launches,
+             mean_pos_err_mm=1e3 * float(pos_err.mean()), mean_rot_err_deg=float(torch.rad2deg(rot_err).mean()))
 
-    # 4. exact
-    t0 = time.perf_counter()
-    launches_before = fused_mlp.launches
-    sols, valids, tier_counts = solver.generate_exact_ik_solutions(
-        targets, repeat_counts=(1, 3, 10), pos_error_threshold=1e-3, rot_error_threshold=0.01,
-        n_opt_steps_max=3, generator=g, return_tier_counts=True,
-    )
-    torch.cuda.synchronize()
-    exact_s = time.perf_counter() - t0
-    exact_launches = fused_mlp.launches - launches_before
-    main_path_launches = fused_mlp.launches
-    tiers = [int(c) for c in tier_counts.cpu()]
-    tiers_run = 1 + sum(1 for c in tiers[:-1] if c < N_POSES)
-    check(exact_launches == 2 * hp.nb_nodes * tiers_run,
-          f"expected {2 * hp.nb_nodes * tiers_run} launches for {tiers_run} tiers, got {exact_launches}")
-    v = valids.cpu().numpy()
-    s = sols.cpu().double().numpy()[v]
-    low = robot.limits_low().double().numpy()
-    high = robot.limits_high().double().numpy()
-    check(v.mean() >= 0.99, f"only {v.sum()}/{N_POSES} poses solved")
-    check(bool(((s >= low - 1e-6) & (s <= high + 1e-6)).all()), "a valid solution lies outside the joint limits")
-    R, p = fk64(robot.joints, s)
-    t = targets.cpu().double().numpy()[v]
-    pos64 = np.linalg.norm(p - t[:, :3], axis=-1)
-    Rt = quat_to_matrix64(t[:, 3:] / np.linalg.norm(t[:, 3:], axis=-1, keepdims=True))
-    cos = (np.einsum("nij,nij->n", Rt, R) - 1.0) / 2.0
-    rot64 = np.arccos(np.clip(cos, -1.0, 1.0))
-    check(float(pos64.max()) <= 1e-3 + FK_SLACK_POS, f"float64 FK recheck: max pos err {pos64.max()}")
-    check(float(rot64.max()) <= 0.01 + FK_SLACK_ROT, f"float64 FK recheck: max rot err {rot64.max()}")
-    emit("exact", t0, n=N_POSES, valid=int(v.sum()), valid_fraction=float(v.mean()), tier_counts=tiers,
-         tiers_run=tiers_run, kernel_launches=exact_launches, wall_s=exact_s, sols_per_s=N_POSES / exact_s,
-         fk64_max_pos_err_mm=1e3 * float(pos64.max()), fk64_max_rot_err_deg=float(np.degrees(rot64.max())))
+        t0 = time.perf_counter()
+        sols, valids, tier_counts = slv.generate_exact_ik_solutions(targets, generator=g, **exact_kw)
+        torch.cuda.synchronize()
+        exact_s = time.perf_counter() - t0
+        exact_launches = kernel.launches - approx_launches
+        tiers = [int(c) for c in tier_counts.cpu()]
+        tiers_run = 1 + sum(1 for c in tiers[:-1] if c < N_POSES)
+        check(exact_launches == 2 * hp.nb_nodes * tiers_run,
+              f"expected {2 * hp.nb_nodes * tiers_run} launches for {tiers_run} tiers, got {exact_launches}")
+        check(other.launches == 0, f"the other kernel ran {other.launches} times on this path")
+        summary = check_solutions(robot, sols.cpu().numpy(), valids.cpu().numpy(), targets.cpu().numpy(),
+                                  0.99, 0.01)
+        emit(f"exact{phase}", t0, n=N_POSES, **summary, tier_counts=tiers, tiers_run=tiers_run,
+             kernel_launches=exact_launches, other_kernel_launches=other.launches, wall_s=exact_s,
+             sols_per_s=N_POSES / exact_s)
+        return kernel.launches, tiers
 
-    # Where the time of an exact solve goes: a second, traced solve.
+    params_cpu = [{k: [{n: t.cpu() for n, t in lay.items()} for lay in blk[k]] for k in blk}
+                  for blk in solver.params]
+
+    def flow_vs_cpu(slv, phase, atol, mean_atol=None):
+        """The card's flow (kernel) vs the plain flow on the CPU, 64 rows; a bf16
+        flow is also set beside the fp32 flow on the CPU, for contrast."""
+        t0 = time.perf_counter()
+        latent = torch.randn((64, hp.dim_latent_space), generator=gen, device=dev)
+        q_card, _ = slv.flow.inverse(slv._kernel_params, latent, targets[:64])
+        q_cpu, _ = slv.flow.inverse(params_cpu, latent.cpu(), targets[:64].cpu())
+        err = (q_card.cpu() - q_cpu).abs()
+        check(float(err.max()) <= atol, f"card flow vs CPU flow: max abs err {float(err.max())} > {atol}")
+        extra = {}
+        if mean_atol is not None:
+            check(float(err.mean()) <= mean_atol, f"card flow vs CPU flow: mean abs err {float(err.mean())}")
+            q_fp32, _ = solver.flow.inverse(params_cpu, latent.cpu(), targets[:64].cpu())
+            contrast = (q_card.cpu() - q_fp32).abs()
+            extra = {"mean_atol": mean_atol, "contrast_fp32_flow_max_abs_err": float(contrast.max()),
+                     "contrast_fp32_flow_mean_abs_err": float(contrast.mean())}
+        emit(f"flow_vs_cpu{phase}", t0, rows=64, max_abs_err=float(err.max()), mean_abs_err=float(err.mean()),
+             atol=atol, **extra)
+
+    # 4-7. The fp32 main path (K1), where the time goes, and the flow against the CPU.
+    main_path_launches, tiers_fp32 = approx_and_exact(solver, "", fused_mlp, fused_mlp_bf16)
     t0 = time.perf_counter()
     emit("profile", t0, **profile_exact(solver, targets, g))
+    flow_vs_cpu(solver, "", FLOW_ATOL)
 
-    # Reference on a small input: the card's flow (kernel) vs the plain flow on the CPU.
+    # 8. The bf16 main path (K1') on the same targets.
+    main_path_launches_bf16, tiers_bf16 = approx_and_exact(solver_bf16, "_bf16", fused_mlp_bf16, fused_mlp)
     t0 = time.perf_counter()
-    latent = torch.randn((64, hp.dim_latent_space), generator=gen, device=dev)
-    q_card, _ = solver.flow.inverse(solver.params, latent, targets[:64])
-    params_cpu = [{k: [{n: t.cpu() for n, t in lay.items()} for lay in blk[k]] for k in blk} for blk in solver.params]
-    q_cpu, _ = solver.flow.inverse(params_cpu, latent.cpu(), targets[:64].cpu())
-    flow_err = float((q_card.cpu() - q_cpu).abs().max())
-    check(flow_err <= FLOW_ATOL, f"card flow vs CPU flow: max abs err {flow_err} > {FLOW_ATOL}")
-    emit("flow_vs_cpu", t0, rows=64, max_abs_err=flow_err, atol=FLOW_ATOL)
+    emit("profile_bf16", t0, tier_counts_fp32=tiers_fp32, tier_counts_bf16=tiers_bf16,
+         **profile_exact(solver_bf16, targets, g))
+    flow_vs_cpu(solver_bf16, "_bf16", FLOW_BF16_ATOL, FLOW_BF16_MEAN_ATOL)
 
-    print(json.dumps({"kernels": [{
-        "name": "fused_mlp",
-        "route": "cuda",
-        "source": "ikflow_tpu_torch/csrc/fused_mlp.cu",
-        "replaces": "ikflow_tpu/flow/pallas_subnet.py:97",
-        "launches": main_path_launches,
-        "max_abs_err": max_err,
-        "ms": headline["ms"],
-        "plain_ms": headline["plain_ms"],
-        "bound_ms": headline["bound_ms"],
-        "bound_by": headline["bound_by"],
-        "library_ms": None,
-        "at": {"B": headline["B"], "subnet": headline["subnet"]},
-    }]}), flush=True)
+    # 9. megabatch: 100000 reachable poses streamed through the fp32 solver.
+    t0 = time.perf_counter()
+    q_mb = robot.sample_joint_angles(N_MEGABATCH, torch.Generator(device=dev).manual_seed(7), joint_limit_eps=0.02)
+    targets_mb = robot.forward_kinematics(q_mb).cpu().numpy()
+    fused_mlp.launches = 0
+    fused_mlp_bf16.launches = 0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    sols_mb, valids_mb, stats = solve_exact_megabatch(
+        solver, targets_mb, seed=0, pos_error_threshold=1e-3, rot_error_threshold=0.01, return_stats=True,
+    )
+    mb_s = time.perf_counter() - t1
+    check(sols_mb.shape == (N_MEGABATCH, robot.ndof) and bool(np.isfinite(sols_mb).all()), "bad megabatch output")
+    check(fused_mlp.launches == 2 * hp.nb_nodes * sum(t["chunks"] for t in stats) and fused_mlp_bf16.launches == 0,
+          f"megabatch ran K1 {fused_mlp.launches} times, K1' {fused_mlp_bf16.launches} times for {stats}")
+    summary = check_solutions(robot, sols_mb, valids_mb, targets_mb, 0.99, 0.01)
+    emit("megabatch", t0, n=N_MEGABATCH, **summary, wall_s=mb_s, sols_per_s=N_MEGABATCH / mb_s, tiers=stats,
+         kernel_launches=fused_mlp.launches)
+
+    # 10. diverse: 16 of 128 candidates for one pose, against the first 16 raw candidates.
+    t0 = time.perf_counter()
+    pose = targets[0]
+    n_div, oversample = 16, 8
+    fused_mlp.launches = 0
+    fused_mlp_bf16.launches = 0
+    raw = solver.generate_ik_solutions(pose, n=n_div * oversample, generator=torch.Generator(device=dev).manual_seed(5))
+    div = solver.generate_diverse_ik_solutions(pose, n_div, oversample=oversample,
+                                               generator=torch.Generator(device=dev).manual_seed(5))
+    torch.cuda.synchronize()
+    check(fused_mlp.launches == 2 * 2 * hp.nb_nodes and fused_mlp_bf16.launches == 0,
+          f"diverse ran K1 {fused_mlp.launches} times, K1' {fused_mlp_bf16.launches} times")
+
+    def min_pairwise(x):
+        d = torch.cdist(x.double(), x.double())
+        return float(d[~torch.eye(x.shape[0], dtype=torch.bool, device=x.device)].min())
+
+    check(tuple(div.shape) == (n_div, robot.ndof) and bool(torch.isfinite(div).all()), "bad diverse solutions")
+    check(not bool(robot.joint_limits_exceeded(div).any()), "diverse solutions outside joint limits")
+    check(torch.unique(div, dim=0).shape[0] == n_div, "a diverse solution is repeated")
+    check(all(bool((raw == row).all(dim=1).any()) for row in div), "a diverse solution is not a candidate")
+    d_div, d_raw = min_pairwise(div), min_pairwise(raw[:n_div])
+    check(d_div > d_raw, f"diverse min pairwise distance {d_div} <= raw {d_raw}")
+    emit("diverse", t0, n=n_div, oversample=oversample, min_pairwise_rad=d_div, raw_min_pairwise_rad=d_raw,
+         kernel_launches=fused_mlp.launches)
+
+    # 11. K1 vs plain at the rows the megabatch's chunks (a chunk's poses times
+    # its tier's repeat count) and the diverse path gave it.
+    t0 = time.perf_counter()
+    path_batches = sorted({size * t["repeat"] for t in stats for size in t["chunk_rows"]} | {n_div * oversample})
+    rows_p, max_err_p, _ = kernel_rows(fused_mlp, fused_mlp_plain, subnet_bound, solver.params, path_batches,
+                                       torch.Generator(device=dev).manual_seed(1), close_fp32)
+    emit("kernel_vs_plain_paths", t0, atol=KERNEL_ATOL, rtol=KERNEL_RTOL, batches=path_batches, rows=rows_p)
+
+    print(json.dumps({"kernels": [
+        kernel_entry("fused_mlp", "bf16_hidden=False: every layer fp32, SIMT FFMA",
+                     "ikflow_tpu_torch/csrc/fused_mlp.cu", main_path_launches, max(max_err, max_err_p), headline),
+        kernel_entry("fused_mlp_bf16", "bf16_hidden=True: hidden x hidden layers bf16 on mma.sync, fp32 accumulate",
+                     "ikflow_tpu_torch/csrc/fused_mlp_bf16.cu", main_path_launches_bf16, max_err_b, headline_b),
+    ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"total_seconds": round(time.perf_counter() - t_all, 3)}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

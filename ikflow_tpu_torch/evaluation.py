@@ -1,7 +1,7 @@
 """Solution grading: pose errors and joint-limit violations.
 
-Port of ``ikflow_tpu/evaluation.py`` without the self-collision check, which
-is not ported yet.
+Port of ``ikflow_tpu/evaluation.py`` (with ``solution_diversity``) without
+the self-collision check, which is not ported yet.
 """
 
 from __future__ import annotations
@@ -35,6 +35,17 @@ def solution_pose_errors(robot, solutions: torch.Tensor, target_poses: torch.Ten
 def calculate_joint_limits_exceeded(robot, configs: torch.Tensor) -> torch.Tensor:
     """Per-config bool: any joint strictly outside its limits."""
     return robot.joint_limits_exceeded(configs)
+
+
+def solution_diversity(solutions: torch.Tensor, n_poses: int, n_samples: int) -> torch.Tensor:
+    """Per-pose solution spread: mean pairwise joint-space L2 distance (rad).
+    ``solutions`` is (n_poses * n_samples, ndof), pose-major; returns
+    (n_poses,), the mean over the n_samples * (n_samples - 1) ordered pairs."""
+    if n_samples < 2:
+        raise ValueError("diversity needs at least 2 samples per pose")
+    sols = solutions.reshape(n_poses, n_samples, solutions.shape[-1])
+    d = torch.linalg.norm(sols[:, :, None, :] - sols[:, None, :, :], dim=-1)
+    return d.sum(dim=(1, 2)) / (n_samples * (n_samples - 1))
 
 
 def evaluate_solutions(robot, target_poses: torch.Tensor, solutions: torch.Tensor) -> SolutionEvaluation:

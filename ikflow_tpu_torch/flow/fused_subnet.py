@@ -1,19 +1,24 @@
-"""Fused coupling-subnet MLP: a hand-written CUDA kernel and its plain version.
+"""Fused coupling-subnet MLP: hand-written CUDA kernels and their plain versions.
 
-Replaces the Pallas TPU kernel ``ikflow_tpu/flow/pallas_subnet.py::fused_mlp``.
-Both compute ``h <- x``, then ``h <- h W + b`` per layer with LeakyReLU(0.01)
-after all but the last, for a (B, in) fp32 input.
+They replace the Pallas TPU kernel ``ikflow_tpu/flow/pallas_subnet.py::fused_mlp``,
+which compiles to one of two bodies by its static flag ``bf16_hidden``. All
+compute ``h <- x``, then ``h <- h W + b`` per layer with LeakyReLU(0.01) after
+all but the last, for a (B, in) fp32 input.
 
-Kernel: ``csrc/fused_mlp.cu``, built by nvcc into a C-ABI library and called
-through ctypes on PyTorch's current stream. It is bound by fp32 operations:
-2 * B * (in*W + 2*W^2 + W*out) FLOP, about 4.2 MFLOP per row at width 1024,
-against 8.4 MB of weights. Its design keeps each 16-row tile's activations in
-shared memory across all layers (no (B, width) activation goes to device
-memory) and streams the weights from L2, each weight read feeding 16 FMAs;
-see the source for the details.
+- K1, ``fused_mlp`` (``csrc/fused_mlp.cu``): every layer in fp32. It is bound
+  by fp32 operations: 2 * B * (in*W + 2*W^2 + W*out) FLOP, about 4.2 MFLOP per
+  row at width 1024, against 8.4 MB of weights. Each 16-row tile's
+  activations stay in shared memory across all layers and the weights stream
+  from L2, each weight read feeding 16 FMAs; see the source.
+- K1', ``fused_mlp_bf16`` (``csrc/fused_mlp_bf16.cu``): the layers
+  ``0 < i < n-1`` take bf16 inputs and bf16 weights with fp32 accumulation,
+  on the tensor cores; the first and last layer, biases and activations stay
+  fp32. Its hidden weights are converted to bf16 once per parameter set, in
+  the tensor-core fragment order (``prepare_bf16_subnet``).
 
-``fused_mlp`` takes the plain version only for tensors on the CPU; for a CUDA
-tensor it launches the kernel or raises.
+Both kernels are built by nvcc into C-ABI libraries and called through ctypes
+on PyTorch's current stream. A wrapper takes its plain version only for
+tensors on the CPU; for a CUDA tensor it launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -30,24 +35,50 @@ LEAKY_SLOPE = 0.01
 MAX_LAYERS = 5  # must match csrc/fused_mlp.cu
 MAX_OUT = 16
 MAX_WIDTH = 1024  # two fp32 buffers of 16 x width rows must fit in shared memory
+MAX_IN_BF16 = 64  # must match csrc/fused_mlp_bf16.cu: the input tile lives in shared memory
 
-_LIB = None
+_BOUND: Dict[str, ctypes.CDLL] = {}
 
 
-def _library() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        lib = cuda_build.load("fused_mlp")
+def _library(name: str, entry: str, n_ptr_arrays: int, error_string: str) -> ctypes.CDLL:
+    """``build/lib<name>.so`` with ``entry(x, out, B, in, width, out_dim,
+    n_layers, <n_ptr_arrays arrays of MAX_LAYERS pointers>, stream)`` and
+    ``error_string(err)`` declared."""
+    lib = _BOUND.get(name)
+    if lib is None:
+        lib = cuda_build.load(name)
         ptrs = ctypes.c_void_p * MAX_LAYERS
-        lib.ikflow_fused_mlp.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ptrs, ptrs, ctypes.c_void_p,
+        fn = getattr(lib, entry)
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5 + [ptrs] * n_ptr_arrays + [
+            ctypes.c_void_p
         ]
-        lib.ikflow_fused_mlp.restype = ctypes.c_int
-        lib.ikflow_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.ikflow_cuda_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
+        fn.restype = ctypes.c_int
+        getattr(lib, error_string).argtypes = [ctypes.c_int]
+        getattr(lib, error_string).restype = ctypes.c_char_p
+        _BOUND[name] = lib
+    return lib
+
+
+def _launch(lib: ctypes.CDLL, entry: str, error_string: str, x: torch.Tensor,
+            layers: Sequence[Dict[str, torch.Tensor]], *ptr_arrays) -> torch.Tensor:
+    """Allocate the (B, out) output and launch ``entry`` on the current stream;
+    raise if the launch fails. Launches nothing for B == 0."""
+    B, in_dim = x.shape
+    out_dim = layers[-1]["w"].shape[1]
+    out = torch.empty((B, out_dim), dtype=torch.float32, device=x.device)
+    if B == 0:
+        return out
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = getattr(lib, entry)(x.data_ptr(), out.data_ptr(), B, in_dim, layers[0]["w"].shape[1], out_dim,
+                                  len(layers), *ptr_arrays, stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} kernel launch failed: {getattr(lib, error_string)(err).decode()}")
+    return out
+
+
+def _pointers(layers: Sequence[Dict[str, torch.Tensor]], key: str):
+    return (ctypes.c_void_p * MAX_LAYERS)(*[layer[key].data_ptr() if key in layer else None for layer in layers])
 
 
 def fused_mlp_plain(x: torch.Tensor, layers: Sequence[Dict[str, torch.Tensor]]) -> torch.Tensor:
@@ -60,17 +91,59 @@ def fused_mlp_plain(x: torch.Tensor, layers: Sequence[Dict[str, torch.Tensor]]) 
     return h
 
 
-def _check(x: torch.Tensor, layers: Sequence[Dict[str, torch.Tensor]]) -> None:
+def fused_mlp_bf16_plain(x: torch.Tensor, layers: Sequence[Dict[str, torch.Tensor]]) -> torch.Tensor:
+    """The plain version of K1': ``apply_subnet(..., bf16_hidden=True)``.
+
+    A hidden layer rounds its input and its weights to bf16 and multiplies the
+    upcast values in fp32 (exact products, fp32 sums; a bf16 x bf16 matmul
+    would round its output to bf16), then adds the bias in fp32. Run it with
+    TF32 off. The first and the last layer are fp32 ``addmm``."""
+    h = x
+    n = len(layers)
+    for i, layer in enumerate(layers):
+        if 0 < i < n - 1:
+            acc = h.to(torch.bfloat16).float() @ layer["w"].to(torch.bfloat16).float()
+            h = acc + layer["b"]
+        else:
+            h = torch.addmm(layer["b"], h, layer["w"])
+        if i < n - 1:
+            h = F.leaky_relu(h, LEAKY_SLOPE)
+    return h
+
+
+def pack_bf16_weight(w: torch.Tensor) -> torch.Tensor:
+    """A hidden weight (K, N) fp32 as bf16 (round to nearest even), flat, in
+    the order K1' reads its mma.m16n8k16 B fragments: for each n-tile of 8
+    columns and k-step of 16 rows, the 32 lanes' fragments in lane order, a
+    lane (g = lane // 4, t = lane % 4) holding column g and rows
+    2t, 2t+1, 8+2t, 9+2t of the step. K % 16 == 0 and N % 8 == 0."""
+    K, N = w.shape
+    if K % 16 or N % 8:
+        raise ValueError(f"bf16 weights need K % 16 == 0 and N % 8 == 0, got {tuple(w.shape)}")
+    wb = w.to(torch.bfloat16).reshape(K // 16, 2, 4, 2, N // 8, 8)  # [kt, half, t, e, nt, g]
+    return wb.permute(4, 0, 5, 2, 1, 3).contiguous().reshape(-1)  # [nt, kt, g, t, half, e]
+
+
+def prepare_bf16_subnet(layers: Sequence[Dict[str, torch.Tensor]]):
+    """The subnet's layers with each hidden layer's packed bf16 weight added
+    under ``"wp"``: done once per parameter set, read by every K1' launch."""
+    n = len(layers)
+    return [dict(layer, wp=pack_bf16_weight(layer["w"])) if 0 < i < n - 1 else layer
+            for i, layer in enumerate(layers)]
+
+
+def _check(x: torch.Tensor, layers: Sequence[Dict[str, torch.Tensor]], width_multiple: int = 4,
+           max_in: int = MAX_WIDTH) -> None:
     if not 2 <= len(layers) <= MAX_LAYERS:
         raise ValueError(f"fused_mlp takes 2..{MAX_LAYERS} layers, got {len(layers)}")
     if x.ndim != 2:
         raise ValueError(f"x must be (B, in), got shape {tuple(x.shape)}")
     width = layers[0]["w"].shape[1]
-    if width % 4 or width > MAX_WIDTH:
-        raise ValueError(f"hidden width must be a multiple of 4 and <= {MAX_WIDTH}, got {width}")
+    if width % width_multiple or not 0 < width <= MAX_WIDTH:
+        raise ValueError(f"hidden width must be a multiple of {width_multiple} and <= {MAX_WIDTH}, got {width}")
     k = x.shape[1]
-    if k > width:
-        raise ValueError(f"input width {k} exceeds hidden width {width}")
+    if k > min(width, max_in):
+        raise ValueError(f"input width {k} exceeds {min(width, max_in)}")
     for i, layer in enumerate(layers):
         w, b = layer["w"], layer["b"]
         n = w.shape[1]
@@ -99,24 +172,45 @@ def fused_mlp(x: torch.Tensor, layers: Sequence[Dict[str, torch.Tensor]]) -> tor
     if x.device.type != "cuda":
         raise ValueError(f"fused_mlp runs on CUDA or CPU tensors, got {x.device}")
     _check(x, layers)
-    B, in_dim = x.shape
-    out_dim = layers[-1]["w"].shape[1]
-    out = torch.empty((B, out_dim), dtype=torch.float32, device=x.device)
-    if B == 0:
-        return out
-    lib = _library()
-    ptrs = ctypes.c_void_p * MAX_LAYERS
-    w = ptrs(*[layer["w"].data_ptr() for layer in layers])
-    b = ptrs(*[layer["b"].data_ptr() for layer in layers])
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.ikflow_fused_mlp(
-            x.data_ptr(), out.data_ptr(), B, in_dim, layers[0]["w"].shape[1], out_dim, len(layers), w, b, stream
-        )
-    if err != 0:
-        raise RuntimeError(f"fused_mlp kernel launch failed: {lib.ikflow_cuda_error_string(err).decode()}")
-    fused_mlp.launches += 1
+    lib = _library("fused_mlp", "ikflow_fused_mlp", 2, "ikflow_cuda_error_string")
+    out = _launch(lib, "ikflow_fused_mlp", "ikflow_cuda_error_string", x, layers,
+                  _pointers(layers, "w"), _pointers(layers, "b"))
+    if x.shape[0]:
+        fused_mlp.launches += 1
     return out
 
 
 fused_mlp.launches = 0  # kernel launches; the plain CPU path does not count
+
+
+def _check_bf16(x: torch.Tensor, layers: Sequence[Dict[str, torch.Tensor]]) -> None:
+    _check(x, layers, width_multiple=16, max_in=MAX_IN_BF16)
+    for i, layer in enumerate(layers[1:-1], start=1):
+        wp = layer.get("wp")
+        if wp is None:
+            raise ValueError(f"layer {i} has no packed bf16 weight: prepare the subnet once with prepare_bf16_subnet")
+        if wp.dtype != torch.bfloat16 or wp.numel() != layer["w"].numel() or not wp.is_contiguous():
+            raise ValueError(f"layer {i}: packed weight must be contiguous bf16 of {layer['w'].numel()} elements")
+        if wp.device != x.device or wp.data_ptr() % 16:
+            raise ValueError(f"layer {i}: packed weight must be 16-byte aligned on {x.device}")
+
+
+def fused_mlp_bf16(x: torch.Tensor, layers: Sequence[Dict[str, torch.Tensor]]) -> torch.Tensor:
+    """Subnet MLP with bf16 hidden layers: x (B, in) -> (B, out). ``layers``
+    as for ``fused_mlp``, from ``prepare_bf16_subnet`` (hidden layers carry
+    their packed bf16 weight ``"wp"``); hidden width a multiple of 16,
+    in <= 64, last N <= 16."""
+    if x.device.type == "cpu":
+        return fused_mlp_bf16_plain(x, layers)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_mlp_bf16 runs on CUDA or CPU tensors, got {x.device}")
+    _check_bf16(x, layers)
+    lib = _library("fused_mlp_bf16", "ikflow_fused_mlp_bf16", 3, "ikflow_bf16_cuda_error_string")
+    out = _launch(lib, "ikflow_fused_mlp_bf16", "ikflow_bf16_cuda_error_string", x, layers,
+                  _pointers(layers, "w"), _pointers(layers, "wp"), _pointers(layers, "b"))
+    if x.shape[0]:
+        fused_mlp_bf16.launches += 1
+    return out
+
+
+fused_mlp_bf16.launches = 0  # kernel launches; the plain CPU path does not count

@@ -11,8 +11,10 @@ Parameters are a tuple of per-block ``{"s1": layers, "s2": layers}``, each
 layer ``{"w": (K, N), "b": (N,)}``: the JAX pytree's structure.
 
 ``forward`` (q -> z, with logdet) runs the plain subnet. ``inverse``
-(z -> q, the inference path) runs every subnet through ``fused_mlp``: the CUDA
-kernel for tensors on the card, its plain version on the CPU.
+(z -> q, the inference path) runs every subnet through ``fused_mlp`` (K1), or
+``fused_mlp_bf16`` (K1') when ``hp.bf16_hidden``: the CUDA kernel for tensors
+on the card, its plain version on the CPU. K1' reads its hidden weights in
+bf16, packed once per parameter set by ``kernel_params``.
 """
 
 from __future__ import annotations
@@ -24,7 +26,13 @@ import torch
 import torch.nn.functional as F
 
 from ikflow_tpu_torch.config import SIGMOID_SCALING_ABS_MAX
-from ikflow_tpu_torch.flow.fused_subnet import fused_mlp, fused_mlp_plain
+from ikflow_tpu_torch.flow.fused_subnet import (
+    fused_mlp,
+    fused_mlp_bf16,
+    fused_mlp_bf16_plain,
+    fused_mlp_plain,
+    prepare_bf16_subnet,
+)
 from ikflow_tpu_torch.flow.params import FlowHyperParams
 
 _TWO_OVER_PI = 2.0 / np.pi
@@ -38,8 +46,6 @@ class GlowFlow:
             raise ValueError(f"unsupported coupling layer {hp.coupling_layer!r}")
         if hp.clamp_activation not in ("atan", "atan_scaled"):
             raise ValueError(f"unsupported clamp activation {hp.clamp_activation!r}")
-        if hp.bf16_hidden:
-            raise NotImplementedError("bf16_hidden subnets are not ported yet")
         if hp.coeff_fn_config not in (1, 2, 3, 4):
             raise ValueError("subnet depth (coeff_fn_config) must be in [1, 4]")
         self.hp = hp
@@ -51,6 +57,8 @@ class GlowFlow:
         self.split1 = self.D // 2
         self.split2 = self.D - self.split1
         self.clamp = float(hp.rnvp_clamp)
+        self._subnet_plain = fused_mlp_bf16_plain if hp.bf16_hidden else fused_mlp_plain
+        self._subnet_kernel = fused_mlp_bf16 if hp.bf16_hidden else fused_mlp
 
         # Fm.PermuteRandom(seed=i): output[:, j] = input[:, perm[j]].
         if hp.permute_random_enabled:
@@ -126,6 +134,14 @@ class GlowFlow:
             for block in self.param_shapes()
         )
 
+    def kernel_params(self, params):
+        """``params`` as ``inverse`` reads them: with ``bf16_hidden`` every
+        subnet's hidden layers also carry their packed bf16 weight (built here,
+        once per parameter set); otherwise ``params`` itself."""
+        if not self.hp.bf16_hidden:
+            return params
+        return tuple({s: prepare_bf16_subnet(block[s]) for s in ("s1", "s2")} for block in params)
+
     # ------------------------------------------------------------------
     def _clamped(self, s: torch.Tensor) -> torch.Tensor:
         if self.hp.clamp_activation == "atan":
@@ -134,20 +150,20 @@ class GlowFlow:
 
     def _couple_forward(self, block, x: torch.Tensor, cond: torch.Tensor):
         x1, x2 = x[:, : self.split1], x[:, self.split1 :]
-        a2 = fused_mlp_plain(torch.cat([x2, cond], dim=1), block["s2"])
+        a2 = self._subnet_plain(torch.cat([x2, cond], dim=1), block["s2"])
         s2 = self._clamped(a2[:, : self.split1])
         y1 = x1 * torch.exp(s2) + a2[:, self.split1 :]
-        a1 = fused_mlp_plain(torch.cat([y1, cond], dim=1), block["s1"])
+        a1 = self._subnet_plain(torch.cat([y1, cond], dim=1), block["s1"])
         s1 = self._clamped(a1[:, : self.split2])
         y2 = x2 * torch.exp(s1) + a1[:, self.split2 :]
         return torch.cat([y1, y2], dim=1), s1.sum(dim=1) + s2.sum(dim=1)
 
     def _couple_inverse(self, block, y: torch.Tensor, cond: torch.Tensor):
         y1, y2 = y[:, : self.split1], y[:, self.split1 :]
-        a1 = fused_mlp(torch.cat([y1, cond], dim=1), block["s1"])
+        a1 = self._subnet_kernel(torch.cat([y1, cond], dim=1), block["s1"])
         s1 = self._clamped(a1[:, : self.split2])
         x2 = (y2 - a1[:, self.split2 :]) * torch.exp(-s1)
-        a2 = fused_mlp(torch.cat([x2, cond], dim=1), block["s2"])
+        a2 = self._subnet_kernel(torch.cat([x2, cond], dim=1), block["s2"])
         s2 = self._clamped(a2[:, : self.split1])
         x1 = (y1 - a2[:, self.split1 :]) * torch.exp(-s2)
         return torch.cat([x1, x2], dim=1), -(s1.sum(dim=1) + s2.sum(dim=1))
@@ -190,7 +206,8 @@ class GlowFlow:
         return h, logdet
 
     def inverse(self, params, z: torch.Tensor, cond: torch.Tensor):
-        """Latent z (n, D) -> q-space, with log|det J| of the inverse map."""
+        """Latent z (n, D) -> q-space, with log|det J| of the inverse map.
+        On the card a bf16 flow needs ``kernel_params(params)``."""
         self._check_inputs(z, cond)
         c = self._constants(z.device, z.dtype)
         h = z

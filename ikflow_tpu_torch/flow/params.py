@@ -28,8 +28,8 @@ class FlowHyperParams:
 
     # "atan": s -> clamp * (2/pi) * atan(s); "atan_scaled": clamp * (2/pi) * atan(s / clamp).
     clamp_activation: str = "atan"
-    # bf16 inputs on the hidden x hidden subnet matmuls. Not ported yet: the
-    # port's flow refuses it.
+    # bf16 inputs and weights, fp32 accumulation, on the hidden x hidden
+    # subnet matmuls (kernel K1' in the flow's inverse).
     bf16_hidden: bool = False
 
     @classmethod

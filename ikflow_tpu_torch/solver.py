@@ -2,7 +2,8 @@
 of flow seeds over widening retry tiers.
 
 Port of ``ikflow_tpu/solver.py`` (``draw_latent``, ``derive_retry_capacities``,
-``generate_ik_solutions``, ``generate_exact_ik_solutions``). Randomness comes
+``set_params``, ``generate_ik_solutions``, ``generate_diverse_ik_solutions``,
+``generate_exact_ik_solutions``). Randomness comes
 from explicit ``torch.Generator``s; each solver owns one, seeded from
 ``seed``, on its device.
 
@@ -46,6 +47,26 @@ def draw_latent(
         return latent_scale * torch.randn(shape, generator=generator, device=generator.device, dtype=dtype)
     u = torch.rand(shape, generator=generator, device=generator.device, dtype=dtype)
     return 2.0 * latent_scale * u - latent_scale
+
+
+def select_diverse(candidates: torch.Tensor, n: int) -> torch.Tensor:
+    """Indices of ``n`` of the (m, ndof) candidates by greedy farthest-point
+    selection in joint space, seeded with candidate 0: each pick is the first
+    candidate of largest distance to the picked set, and a picked candidate's
+    distance is set to -inf. A fixed-shape loop on the candidates' device,
+    with no host synchronisation per pick."""
+    m = candidates.shape[0]
+    if not 1 <= n <= m:
+        raise ValueError(f"cannot pick {n} of {m} candidates")
+    d = torch.linalg.norm(candidates[:, None, :] - candidates[None, :, :], dim=-1)
+    chosen = torch.zeros((n,), dtype=torch.long, device=candidates.device)
+    min_d = d[0].clone()
+    min_d[0] = -math.inf
+    for i in range(1, n):
+        nxt = torch.argmax(min_d)  # first index of the maximum
+        chosen[i] = nxt
+        min_d = torch.minimum(min_d, d[nxt]).index_fill_(0, nxt.reshape(1), -math.inf)
+    return chosen
 
 
 def derive_retry_capacities(tier_counts, n_poses: int, n_tiers: int):
@@ -109,6 +130,22 @@ class IKFlowSolver:
         self._generator = torch.Generator(device=self.device).manual_seed(seed ^ 0x5EED)
 
     @property
+    def params(self):
+        return self._params
+
+    @params.setter
+    def params(self, params) -> None:
+        # The kernels' copy (packed bf16 hidden weights for a bf16 flow) is
+        # rebuilt with every new parameter set, so it can never be stale.
+        self._params = params
+        self._kernel_params = self._flow.kernel_params(params)
+
+    def set_params(self, params) -> None:
+        """Install trained parameters and mark the weights loaded."""
+        self.params = params
+        self._weights_loaded = True
+
+    @property
     def robot(self) -> KinematicChain:
         return self._robot
 
@@ -136,7 +173,7 @@ class IKFlowSolver:
         return torch.cat([y, pad], dim=1)
 
     def _inverse_q(self, latent: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
-        q, _ = self._flow.inverse(self.params, latent, cond)
+        q, _ = self._flow.inverse(self._kernel_params, latent, cond)
         return q[:, : self.ndof]
 
     # ------------------------------------------------------------------
@@ -184,6 +221,29 @@ class IKFlowSolver:
         if return_detailed:
             return (solutions, *evaluate_solutions(self._robot, y_batch, solutions))
         return solutions
+
+    # ------------------------------------------------------------------
+    def generate_diverse_ik_solutions(
+        self,
+        y,
+        n: int,
+        oversample: int = 4,
+        latent_scale: float = 1.0,
+        generator: Optional[torch.Generator] = None,
+        allow_uninitialized: bool = False,
+    ) -> torch.Tensor:
+        """``n`` clamped solutions (n, ndof) for ONE (7,) pose, picked for
+        joint-space diversity: ``n * oversample`` candidates from
+        ``generate_ik_solutions``, then ``select_diverse``."""
+        self._check_loaded(allow_uninitialized)
+        if n < 1 or oversample < 1:
+            raise ValueError(f"need n >= 1 and oversample >= 1, got {n}, {oversample}")
+        y = self._tensor(y).reshape(7)
+        candidates = self.generate_ik_solutions(
+            y, n=n * oversample, latent_scale=latent_scale, generator=generator,
+            allow_uninitialized=allow_uninitialized,
+        )
+        return candidates[select_diverse(candidates, n)]
 
     # ------------------------------------------------------------------
     def generate_exact_ik_solutions(

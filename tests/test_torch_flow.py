@@ -93,12 +93,13 @@ def test_kernel_input_checks_raise(case):
         fused_subnet._check(x, layers)
 
 
-def _flow_pair(sigmoid, clamp_activation="atan", seed=0):
+def _flow_pair(sigmoid, clamp_activation="atan", seed=0, bf16_hidden=False):
     hp = jax_tiny()
     hp.dim_latent_space = 7 if sigmoid else 8
     hp.sigmoid_on_output = sigmoid
     hp.softflow_enabled = not sigmoid
     hp.clamp_activation = clamp_activation
+    hp.bf16_hidden = bf16_hidden
     jflow = jax_build_flow(hp, jax_get_robot("panda"))
     jparams = jflow.init(jax.random.PRNGKey(seed))
     thp = tiny_model_params()
@@ -153,13 +154,6 @@ def test_permutations_and_param_shapes_match_jax():
     for jb, tb in zip(shapes, tflow.param_shapes()):
         for s in ("s1", "s2"):
             assert [(lay["w"], lay["b"]) for lay in jb[s]] == [(lay["w"], lay["b"]) for lay in tb[s]]
-
-
-def test_bf16_hidden_is_refused():
-    hp = tiny_model_params()
-    hp.bf16_hidden = True
-    with pytest.raises(NotImplementedError):
-        build_flow(hp, get_robot("panda"))
 
 
 def _write_artifact(path, flow_pair, robot_name="panda"):

@@ -1,14 +1,22 @@
-"""Tests of the CUDA kernel on the card. They skip where no CUDA device is
-present (decided inside each test); run them on the card with
+"""Tests of the CUDA kernels K1 (fp32) and K1' (bf16 hidden layers) on the
+card. They skip where no CUDA device is present (decided inside each test);
+run them on the card with
 
-    python -m pytest tests/test_torch_gpu.py -m gpu
+    python -m pytest tests/test_torch_gpu.py -m gpu --noconftest
 """
 
 import numpy as np
 import pytest
 import torch
 
-from ikflow_tpu_torch.flow import fused_mlp, fused_mlp_plain, tiny_model_params
+from ikflow_tpu_torch.flow import (
+    fused_mlp,
+    fused_mlp_bf16,
+    fused_mlp_bf16_plain,
+    fused_mlp_plain,
+    prepare_bf16_subnet,
+    tiny_model_params,
+)
 from ikflow_tpu_torch.robots import get_robot
 from ikflow_tpu_torch.solver import IKFlowSolver
 
@@ -18,7 +26,7 @@ pytestmark = pytest.mark.gpu
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the fused_mlp kernel has no CPU mode")
+        pytest.skip("needs a CUDA device: the fused_mlp kernels have no CPU mode")
     return torch.device("cuda")
 
 
@@ -70,3 +78,71 @@ def test_flow_inverse_runs_the_kernel(cuda):
     q_cpu = cpu.generate_ik_solutions(poses.cpu(), latent=latent.cpu(), allow_uninitialized=True)
     np.testing.assert_allclose(q_card.cpu().numpy(), q_cpu.numpy(), atol=1e-4)
     assert q.shape == (37, 7)
+
+
+# K1' against its plain version on the card. Both round the same operands to
+# bf16 and sum exact products in fp32, in another order (tensor-core k-steps
+# vs cuBLAS), so an activation within an fp32 ulp of a bf16 rounding boundary
+# may round the other way in a later layer: most outputs agree to 1e-5, all to
+# BF16_LOOSE.
+BF16_TIGHT, BF16_TIGHT_SHARE, BF16_LOOSE = 1e-5, 0.9, 2e-3
+
+
+def assert_bf16_close(out, ref):
+    err = (out - ref).abs()
+    assert float(err.max()) <= BF16_LOOSE, f"max abs err {float(err.max())}"
+    assert float((err <= BF16_TIGHT).float().mean()) >= BF16_TIGHT_SHARE
+
+
+@pytest.mark.parametrize("B", [1, 31, 32, 33, 1000, 10000])
+@pytest.mark.parametrize("dims", [
+    (10, 1024, 1024, 1024, 8), (11, 1024, 1024, 1024, 6), (13, 256, 256, 10), (12, 64, 5),
+    (16, 128, 128, 128, 128, 16), (20, 48, 48, 48, 4), (64, 1024, 1024, 3),
+])
+def test_bf16_kernel_matches_plain(cuda, B, dims):
+    layers = prepare_bf16_subnet(_subnet(dims, cuda, seed=B + len(dims)))
+    x = torch.randn((B, dims[0]), generator=torch.Generator(device=cuda).manual_seed(2), device=cuda)
+    before, before_k1 = fused_mlp_bf16.launches, fused_mlp.launches
+    out = fused_mlp_bf16(x, layers)
+    torch.cuda.synchronize()
+    assert fused_mlp_bf16.launches == before + 1 and fused_mlp.launches == before_k1
+    ref = fused_mlp_bf16_plain(x, layers)
+    assert bool(torch.isfinite(out).all())
+    if len(dims) == 3:  # depth 1: no bf16 layer, K1's function in fp32
+        torch.testing.assert_close(out, fused_mlp_plain(x, layers), atol=1e-4, rtol=1e-4)
+    else:
+        assert_bf16_close(out, ref)
+
+
+def test_bf16_kernel_refuses_what_it_does_not_take(cuda):
+    layers = prepare_bf16_subnet(_subnet((10, 64, 64, 8), cuda, seed=0))
+    x = torch.zeros((4, 10), device=cuda)
+    with pytest.raises(ValueError):
+        fused_mlp_bf16(torch.zeros((4, 20), device=cuda)[:, ::2], layers)
+    with pytest.raises(TypeError):
+        fused_mlp_bf16(x.double(), layers)
+    with pytest.raises(ValueError):  # hidden weights never packed
+        fused_mlp_bf16(x, _subnet((10, 64, 64, 8), cuda, seed=0))
+    with pytest.raises(ValueError):  # packed weights on the host
+        fused_mlp_bf16(x, [dict(lay, wp=lay["wp"].cpu()) if "wp" in lay else lay for lay in layers])
+    with pytest.raises(ValueError):  # width 40 is no multiple of 16
+        fused_mlp_bf16(x, _subnet((10, 40, 8), cuda, seed=0))
+    with pytest.raises(ValueError):  # input wider than 64
+        fused_mlp_bf16(torch.zeros((4, 65), device=cuda), prepare_bf16_subnet(_subnet((65, 128, 128, 8), cuda, 0)))
+
+
+def test_bf16_flow_inverse_runs_the_bf16_kernel(cuda):
+    hp = tiny_model_params()
+    hp.dim_latent_space = 8
+    hp.bf16_hidden = True
+    solver = IKFlowSolver(hp, get_robot("panda"), device=cuda)
+    poses = torch.randn((37, 7), device=cuda)
+    latent = torch.randn((37, 8), device=cuda)
+    before, before_k1 = fused_mlp_bf16.launches, fused_mlp.launches
+    q_card = solver.generate_ik_solutions(poses, latent=latent, allow_uninitialized=True)
+    assert fused_mlp_bf16.launches - before == 2 * hp.nb_nodes and fused_mlp.launches == before_k1
+    cpu = IKFlowSolver(hp, get_robot("panda"), device="cpu",
+                       params=[{s: [{k: v.cpu() for k, v in lay.items()} for lay in blk[s]] for s in blk}
+                               for blk in solver.params])
+    q_cpu = cpu.generate_ik_solutions(poses.cpu(), latent=latent.cpu(), allow_uninitialized=True)
+    assert_bf16_close(q_card.cpu(), q_cpu)

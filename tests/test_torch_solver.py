@@ -32,11 +32,12 @@ from ikflow_tpu_torch.solver import (
 )
 
 
-def _solver_pair(sigmoid=False, seed=0):
+def _solver_pair(sigmoid=False, seed=0, bf16_hidden=False):
     hp = jax_tiny()
     hp.dim_latent_space = 7 if sigmoid else 8
     hp.sigmoid_on_output = sigmoid
     hp.softflow_enabled = not sigmoid
+    hp.bf16_hidden = bf16_hidden
     js = JaxSolver(hp, jax_get_robot("panda"), seed=seed)
     thp = tiny_model_params()
     for k, v in hp.to_dict().items():
