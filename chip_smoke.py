@@ -6,26 +6,35 @@ import faulthandler; faulthandler.dump_traceback_later(300, exit=True)  # noqa: 
 #     python3 chip_smoke.py
 #
 # Runs from the root of a checkout with no install, network or git. Builds
-# ``ikflow_tpu_torch/csrc/fused_mlp.cu`` (K1, fp32) and ``fused_mlp_bf16.cu``
-# (K1', bf16 hidden layers) with one nvcc each, in parallel, into ``build/``,
+# ``ikflow_tpu_torch/csrc/fused_mlp.cu`` (K1, the fp32 contract on the tensor
+# cores) and ``fused_mlp_bf16.cu`` (K1', bf16 hidden layers) with one nvcc
+# each, in parallel, into ``build/``, printing nvcc's -Xptxas -v report,
 # loads ``panda__full__sigmoid`` (12 GLOW blocks, subnets 10/11 -> 1024 x 3 ->
 # 8/6, fp32) from ``models/panda__full_sigmoid.npz``, and runs:
 #
 # 1. device: the card, its power limit and the TF32 flags;
 # 2. kernel_vs_plain: K1 against addmm + leaky_relu on the shipped weights of
-#    block 0, at the batch sizes the serving path gives it;
+#    block 0 (atol/rtol 1e-4 and 99% of outputs within 1e-5, a contract that
+#    plain TF32 is shown to fail), at the batch sizes the serving path gives
+#    it, with its time against both bounds (fp32 SIMT, and its 3xTF32
+#    tensor-core route) and,
+#    at 1000 and 10000 rows, with cold L2 (calls rotating over all 24
+#    subnets, as the solve does);
 # 3. kernel_vs_plain_bf16: K1' against its plain bf16 version, the same way;
-# 4. approx: ``generate_ik_solutions`` on 1000 poses (24 K1 launches);
-# 5. exact: ``generate_exact_ik_solutions`` on 1000 reachable poses, tiers
+# 4. self_collision: ``config_self_collides`` on 100000 uniform Panda samples
+#    on the card against the CPU port on the same samples;
+# 5. approx: ``generate_ik_solutions`` on 1000 poses (24 K1 launches), with
+#    the 5-field detailed output;
+# 6. exact: ``generate_exact_ik_solutions`` on 1000 reachable poses, tiers
 #    (1, 3, 10), 3 LM steps, 1 mm / 0.01 rad, checked by an independent float64
 #    forward kinematics;
-# 6. profile: device time by kernel over a second, traced exact solve;
-# 7. flow_vs_cpu: the card's flow against the plain flow on the CPU, 64 rows;
-# 8. approx_bf16, exact_bf16, profile_bf16, flow_vs_cpu_bf16: the same through
+# 7. profile: device time by kernel over a second, traced exact solve;
+# 8. flow_vs_cpu: the card's flow against the plain flow on the CPU, 64 rows;
+# 9. approx_bf16, exact_bf16, profile_bf16, flow_vs_cpu_bf16: the same through
 #    a solver built with ``hp.bf16_hidden = True`` on the same weights (K1');
-# 9. megabatch: 100000 reachable poses through ``solve_exact_megabatch``;
-# 10. diverse: ``generate_diverse_ik_solutions`` for one pose;
-# 11. kernel_vs_plain_paths: K1 against addmm + leaky_relu at the row counts
+# 10. megabatch: 100000 reachable poses through ``solve_exact_megabatch``;
+# 11. diverse: ``generate_diverse_ik_solutions`` for one pose;
+# 12. kernel_vs_plain_paths: K1 against addmm + leaky_relu at the row counts
 #     the megabatch and diverse paths gave it.
 #
 # Every phase prints one JSON line; any failed check raises. The last line is
@@ -33,6 +42,7 @@ import faulthandler; faulthandler.dump_traceback_later(300, exit=True)  # noqa: 
 # prints no result.
 
 import concurrent.futures  # noqa: E402
+import ctypes  # noqa: E402
 import dataclasses  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
@@ -50,6 +60,12 @@ MODEL = "panda__full__sigmoid"
 N_POSES = 1000
 KERNEL_ATOL = 1e-4  # fp32 sums over K = 1024 in another order than cuBLAS
 KERNEL_RTOL = 1e-4
+# K1's fp32 contract has a share condition too, because atol/rtol 1e-4 alone
+# passes plain TF32 and passed a K1 whose tensor cores truncated its sums (max
+# 2.2e-4, 89-93% of outputs within 1e-5 on the shipped weights). Sound fp32
+# readings: 99.87-100%. The phase also shows that plain TF32 fails it.
+KERNEL_FP32_TIGHT = 1e-5
+KERNEL_FP32_TIGHT_SHARE = 0.99
 FLOW_ATOL = 1e-3  # kernel flow on the card vs plain flow on the CPU, radians, after 24 subnets
 # K1' vs its plain version: both round the same operands to bf16 and sum exact
 # products in fp32, in another order, so an activation within an fp32 ulp of a
@@ -75,8 +91,11 @@ FK_SLACK_ROT = 1e-4  # radians
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, dense bf16
 # on the tensor cores, HBM3.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
+N_COLLISION = 100000
+COLLISION_MAX_FLIPS = 10  # fp32 FK on the card and the CPU round differently near a contact
 
 
 def emit(phase, t0, **fields):
@@ -101,12 +120,32 @@ def cuda_ms(fn, iters, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def _bound(t_ops, t_bytes, flops):
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops}
+
+
 def subnet_bound(B, layers):
-    flops = 2 * B * sum(lay["w"].shape[0] * lay["w"].shape[1] for lay in layers)
-    nbytes = 4 * (B * layers[0]["w"].shape[0] + B * layers[-1]["w"].shape[1]
-                  + sum(lay["w"].numel() + lay["b"].numel() for lay in layers))
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops
+    """K1, two ways, each labeled: fp32 SIMT (every FLOP at the fp32 peak)
+    and its route (the hidden layers as three TF32 passes at the TF32 peak,
+    the first and last layer at the fp32 peak). Both move the function's
+    bytes: x, out, biases and the 8.46 MB of fp32 weights, each once. (K1
+    itself reads its hidden weights as packed hi/lo planes, twice their fp32
+    bytes: a cost of its design, which the bound does not absorb.) The
+    smaller is the kernel's bound."""
+    hidden, edge = layers[1:-1], [layers[0], layers[-1]]
+    flops_h = 2 * B * sum(lay["w"].shape[0] * lay["w"].shape[1] for lay in hidden)
+    flops_e = 2 * B * sum(lay["w"].shape[0] * lay["w"].shape[1] for lay in edge)
+    io_bytes = 4 * (B * layers[0]["w"].shape[0] + B * layers[-1]["w"].shape[1]
+                    + sum(lay["b"].numel() for lay in layers))
+    w_h = 4 * sum(lay["w"].numel() for lay in hidden)
+    w_e = 4 * sum(lay["w"].numel() for lay in edge)
+    simt = _bound((flops_h + flops_e) / PEAK_FP32_FLOPS, (io_bytes + w_h + w_e) / PEAK_BYTES_PER_S, flops_h + flops_e)
+    route = _bound(3 * flops_h / PEAK_TF32_FLOPS + flops_e / PEAK_FP32_FLOPS,
+                   (io_bytes + w_h + w_e) / PEAK_BYTES_PER_S, flops_h + flops_e)
+    best = min((simt, route), key=lambda b: b["bound_ms"])
+    return dict(best, simt_fp32_bound_ms=simt["bound_ms"], simt_fp32_bound_by=simt["bound_by"],
+                tf32x3_bound_ms=route["bound_ms"], tf32x3_bound_by=route["bound_by"])
 
 
 def subnet_bound_bf16(B, layers):
@@ -120,9 +159,7 @@ def subnet_bound_bf16(B, layers):
     nbytes = (4 * (B * layers[0]["w"].shape[0] + B * layers[-1]["w"].shape[1])
               + 4 * sum(lay["w"].numel() for lay in edge) + 2 * sum(lay["w"].numel() for lay in hidden)
               + 4 * sum(lay["b"].numel() for lay in layers))
-    t_ops = flops16 / PEAK_BF16_FLOPS + flops32 / PEAK_FP32_FLOPS
-    t_bytes = nbytes / PEAK_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops16 + flops32
+    return _bound(flops16 / PEAK_BF16_FLOPS + flops32 / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S, flops16 + flops32)
 
 
 def fk64(joints, q):
@@ -220,10 +257,37 @@ def profile_exact(solver, targets, g):
     }
 
 
-def kernel_rows(kernel, plain, bound, params, batches, gen, close, contrast=None):
-    """A kernel against its plain version on block 0's subnets of ``params``,
-    and, where given, against a ``contrast`` function it must not match:
-    -> (rows, max abs err, the B = 10000 s1 row)."""
+def cold_l2_ms(kernel, params, B, gen, rounds=2):
+    """Per-call time with the weights cold in L2: each round calls the kernel
+    once on every subnet of ``params`` in turn (24 for panda__full__sigmoid,
+    as one flow inverse does), so a call finds its weights evicted by the 23
+    before it. -> (ms per call, bytes of weights per round)."""
+    dev = torch.device("cuda")
+    subnets = [blk[s] for blk in params for s in ("s1", "s2")]
+    xs = {}
+    for layers in subnets:
+        k = layers[0]["w"].shape[0]
+        if k not in xs:
+            xs[k] = torch.randn((B, k), generator=gen, device=dev)
+    calls = [(xs[layers[0]["w"].shape[0]], layers) for layers in subnets]
+
+    def one_round():
+        for x, layers in calls:
+            kernel(x, layers)
+
+    nbytes = sum(t.numel() * t.element_size() for layers in subnets for lay in layers for t in lay.values())
+    return cuda_ms(one_round, rounds, warmup=1) / len(calls), nbytes
+
+
+def kernel_rows(kernel, plain, bound, params, batches, gen, close, contrast=None, cold_batches=(),
+                refuse_contrast_from=None):
+    """A kernel against its plain version on block 0's subnets of ``params``
+    (``close(out, ref)`` lists the failures of its contract), and, where
+    given, against a ``contrast`` function it must not match: -> (rows, max
+    abs err, the B = 10000 s1 row). At ``cold_batches`` the s1 row also has
+    the cold-L2 time over all of ``params``' subnets. From
+    ``refuse_contrast_from`` rows up, the contrast itself must fail the
+    contract against the plain version."""
     dev = torch.device("cuda")
     rows, max_err, headline = [], 0.0, None
     for B in batches:
@@ -235,19 +299,30 @@ def kernel_rows(kernel, plain, bound, params, batches, gen, close, contrast=None
             out_p = plain(x, layers)
             err = (out_k - out_p).abs()
             check(bool(torch.isfinite(out_k).all()), f"non-finite kernel output at B={B} {sname}")
-            close(out_k, out_p, f"kernel disagrees with plain at B={B} {sname}: max abs err {float(err.max())}")
+            fails = close(out_k, out_p)
+            check(not fails, f"kernel disagrees with plain at B={B} {sname}: {fails}")
             iters = 20 if B >= 10000 else 50
             ms = cuda_ms(lambda: kernel(x, layers), iters)
             plain_ms = cuda_ms(lambda: plain(x, layers), iters)
-            bound_ms, bound_by, flops = bound(B, layers)
+            bounds = bound(B, layers)
+            flops = bounds.pop("flops")
             row = {"B": B, "subnet": sname, "shape": [layers[0]["w"].shape[0], layers[-1]["w"].shape[1]],
                    "max_abs_err": float(err.max()), "share_within_1e-5": float((err <= 1e-5).float().mean()),
-                   "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                   "kernel_tflops": flops / ms / 1e9}
+                   "ms": ms, "plain_ms": plain_ms, **bounds, "kernel_tflops": flops / ms / 1e9,
+                   "roofline_share": bounds["bound_ms"] / ms}
+            if B in cold_batches and sname == "s1":
+                row["cold_l2_ms"], row["cold_l2_weight_bytes_per_round"] = cold_l2_ms(kernel, params, B, gen)
             if contrast is not None:
-                other = (out_k - contrast(x, layers)).abs()
+                out_c = contrast(x, layers)
+                other = (out_k - out_c).abs()
                 row["contrast_max_abs_err"] = float(other.max())
                 row["contrast_share_within_1e-5"] = float((other <= 1e-5).float().mean())
+                vs_plain = (out_c - out_p).abs()
+                row["contrast_vs_plain_max_abs_err"] = float(vs_plain.max())
+                row["contrast_vs_plain_share_within_1e-5"] = float((vs_plain <= 1e-5).float().mean())
+                row["contrast_fails"] = close(out_c, out_p)  # the contract's conditions it fails
+                if refuse_contrast_from is not None and B >= refuse_contrast_from:
+                    check(bool(row["contrast_fails"]), f"the contrast meets the contract at B={B} {sname}")
             rows.append(row)
             max_err = max(max_err, row["max_abs_err"])
             if B == 10000 and sname == "s1":
@@ -279,10 +354,12 @@ def main():
 
     from ikflow_tpu_torch import cuda_build
     from ikflow_tpu_torch.flow.fused_subnet import (
+        LEAKY_SLOPE,
         fused_mlp,
         fused_mlp_bf16,
         fused_mlp_bf16_plain,
         fused_mlp_plain,
+        split_tf32,
     )
     from ikflow_tpu_torch.parallel.fleet import solve_exact_megabatch
     from ikflow_tpu_torch.registry import get_ik_solver
@@ -321,30 +398,77 @@ def main():
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    def close_fp32(out_k, out_p, msg):
-        check(torch.allclose(out_k, out_p, atol=KERNEL_ATOL, rtol=KERNEL_RTOL), msg)
+    def close_fp32(out_k, out_p):
+        err = (out_k - out_p).abs()
+        share = float((err <= KERNEL_FP32_TIGHT).float().mean())
+        fails = [] if torch.allclose(out_k, out_p, atol=KERNEL_ATOL, rtol=KERNEL_RTOL) else [
+            f"max abs err {float(err.max())} beyond atol/rtol {KERNEL_ATOL}"]
+        if share < KERNEL_FP32_TIGHT_SHARE:
+            fails.append(f"{share} of outputs within {KERNEL_FP32_TIGHT}, under {KERNEL_FP32_TIGHT_SHARE}")
+        return fails
 
-    rows, max_err, headline = kernel_rows(fused_mlp, fused_mlp_plain, subnet_bound, solver.params,
-                                          (1000, 3000, 10000, 1), gen, close_fp32)  # tiers 1-3 of 1000 poses, one pose
-    emit("kernel_vs_plain", t0, atol=KERNEL_ATOL, rtol=KERNEL_RTOL, rows=rows)
+    def plain_tf32(x, layers):
+        """K1's function with plain TF32 in the hidden layers (operands
+        rounded to tf32, exact products, fp32 sums): what K1 must not be."""
+        h, n = x, len(layers)
+        for i, lay in enumerate(layers):
+            if 0 < i < n - 1:
+                h = split_tf32(h)[0] @ split_tf32(lay["w"])[0] + lay["b"]
+            else:
+                h = torch.addmm(lay["b"], h, lay["w"])
+            if i < n - 1:
+                h = torch.nn.functional.leaky_relu(h, LEAKY_SLOPE)
+        return h
+
+    # tiers 1-3 of 1000 poses, one pose; the kernel reads the solver's packed tf32 hi/lo planes
+    rows, max_err, headline = kernel_rows(fused_mlp, fused_mlp_plain, subnet_bound, solver._kernel_params,
+                                          (1000, 3000, 10000, 1), gen, close_fp32, contrast=plain_tf32,
+                                          cold_batches=(1000, 10000), refuse_contrast_from=1000)
+    n_clusters = ctypes.c_int(0)
+    lib = cuda_build.load("fused_mlp")
+    lib.ikflow_fused_mlp_max_active_clusters.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    check(lib.ikflow_fused_mlp_max_active_clusters(hp.coeff_fn_internal_size, ctypes.byref(n_clusters)) == 0,
+          "cluster occupancy query failed")
+    emit("kernel_vs_plain", t0, atol=KERNEL_ATOL, rtol=KERNEL_RTOL, tight=KERNEL_FP32_TIGHT,
+         tight_share=KERNEL_FP32_TIGHT_SHARE, contrast="plain TF32 (hidden operands rounded to tf32)",
+         max_active_clusters=n_clusters.value, smem_bytes_per_cta=lib.ikflow_fused_mlp_smem_bytes(), rows=rows)
 
     # 3. K1' vs its plain version on the same weights, packed once by the bf16 solver.
     t0 = time.perf_counter()
 
-    def close_bf16(out_k, out_p, msg):
+    def close_bf16(out_k, out_p):
         err = (out_k - out_p).abs()
-        check(float(err.max()) <= KERNEL_BF16_LOOSE, msg)
-        check(float((err <= KERNEL_BF16_TIGHT).float().mean()) >= KERNEL_BF16_TIGHT_SHARE,
-              f"{msg}: under {KERNEL_BF16_TIGHT_SHARE} of outputs within {KERNEL_BF16_TIGHT}")
+        share = float((err <= KERNEL_BF16_TIGHT).float().mean())
+        fails = [] if float(err.max()) <= KERNEL_BF16_LOOSE else [f"max abs err {float(err.max())}"]
+        if share < KERNEL_BF16_TIGHT_SHARE:
+            fails.append(f"{share} of outputs within {KERNEL_BF16_TIGHT}, under {KERNEL_BF16_TIGHT_SHARE}")
+        return fails
 
     rows_b, max_err_b, headline_b = kernel_rows(fused_mlp_bf16, fused_mlp_bf16_plain, subnet_bound_bf16,
                                                 solver_bf16._kernel_params, (1, 1000, 3000, 10000, 32768), gen,
-                                                close_bf16, contrast=fused_mlp_plain)
+                                                close_bf16, contrast=fused_mlp_plain, cold_batches=(1000, 10000))
     emit("kernel_vs_plain_bf16", t0, tight=KERNEL_BF16_TIGHT, tight_share=KERNEL_BF16_TIGHT_SHARE,
          loose=KERNEL_BF16_LOOSE, contrast="fused_mlp_plain (fp32)", rows=rows_b)
 
-    # Targets: FK of in-limit samples, as the JAX package's contract draws them.
+    # 4. Self-collision on the card against the CPU port, on the same uniform samples.
+    t0 = time.perf_counter()
     robot = solver.robot
+    q_col = robot.sample_joint_angles(N_COLLISION, torch.Generator(device=dev).manual_seed(11))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    flags = robot.config_self_collides(q_col)
+    torch.cuda.synchronize()
+    col_s = time.perf_counter() - t1
+    flags_cpu = robot.config_self_collides(q_col.cpu())
+    flips = int((flags.cpu() != flags_cpu).sum())
+    rate, rate_cpu = float(flags.float().mean()), float(flags_cpu.float().mean())
+    check(flags.shape == (N_COLLISION,) and flags.is_cuda, "self-collision flags: wrong shape or device")
+    check(flips <= COLLISION_MAX_FLIPS, f"card and CPU disagree on {flips} of {N_COLLISION} samples")
+    check(0.0 < rate < 0.5, f"self-collision rate {rate} is implausible")
+    emit("self_collision", t0, n=N_COLLISION, pairs=robot.n_capsule_pairs, rate=rate, rate_cpu=rate_cpu,
+         disagreements=flips, max_disagreements=COLLISION_MAX_FLIPS, card_wall_s=col_s)
+
+    # Targets: FK of in-limit samples, as the JAX package's contract draws them.
     g = torch.Generator(device=dev).manual_seed(42)
     q_gt = robot.sample_joint_angles(N_POSES, g, joint_limit_eps=0.02)
     targets = robot.forward_kinematics(q_gt)
@@ -357,15 +481,18 @@ def main():
         kernel.launches = 0
         other.launches = 0
         t0 = time.perf_counter()
-        sols, pos_err, rot_err, jle = slv.generate_ik_solutions(targets, generator=g, return_detailed=True)
+        sols, pos_err, rot_err, jle, colliding = slv.generate_ik_solutions(targets, generator=g,
+                                                                            return_detailed=True)
         torch.cuda.synchronize()
         approx_s = time.perf_counter() - t0
         approx_launches = kernel.launches
         check(tuple(sols.shape) == (N_POSES, robot.ndof) and bool(torch.isfinite(sols).all()), "bad approx solutions")
         check(not bool(jle.any()), "approx solutions outside joint limits")
+        check(colliding.shape == (N_POSES,) and colliding.dtype == torch.bool, "bad self-collision flags")
         check(approx_launches == 2 * hp.nb_nodes, f"expected {2 * hp.nb_nodes} launches, got {approx_launches}")
         emit(f"approx{phase}", t0, n=N_POSES, wall_s=approx_s, kernel_launches=approx_launches,
-             mean_pos_err_mm=1e3 * float(pos_err.mean()), mean_rot_err_deg=float(torch.rad2deg(rot_err).mean()))
+             mean_pos_err_mm=1e3 * float(pos_err.mean()), mean_rot_err_deg=float(torch.rad2deg(rot_err).mean()),
+             self_colliding_share=float(colliding.float().mean()))
 
         t0 = time.perf_counter()
         sols, valids, tier_counts = slv.generate_exact_ik_solutions(targets, generator=g, **exact_kw)
@@ -406,20 +533,20 @@ def main():
         emit(f"flow_vs_cpu{phase}", t0, rows=64, max_abs_err=float(err.max()), mean_abs_err=float(err.mean()),
              atol=atol, **extra)
 
-    # 4-7. The fp32 main path (K1), where the time goes, and the flow against the CPU.
+    # 5-8. The fp32 main path (K1), where the time goes, and the flow against the CPU.
     main_path_launches, tiers_fp32 = approx_and_exact(solver, "", fused_mlp, fused_mlp_bf16)
     t0 = time.perf_counter()
     emit("profile", t0, **profile_exact(solver, targets, g))
     flow_vs_cpu(solver, "", FLOW_ATOL)
 
-    # 8. The bf16 main path (K1') on the same targets.
+    # 9. The bf16 main path (K1') on the same targets.
     main_path_launches_bf16, tiers_bf16 = approx_and_exact(solver_bf16, "_bf16", fused_mlp_bf16, fused_mlp)
     t0 = time.perf_counter()
     emit("profile_bf16", t0, tier_counts_fp32=tiers_fp32, tier_counts_bf16=tiers_bf16,
          **profile_exact(solver_bf16, targets, g))
     flow_vs_cpu(solver_bf16, "_bf16", FLOW_BF16_ATOL, FLOW_BF16_MEAN_ATOL)
 
-    # 9. megabatch: 100000 reachable poses streamed through the fp32 solver.
+    # 10. megabatch: 100000 reachable poses streamed through the fp32 solver.
     t0 = time.perf_counter()
     q_mb = robot.sample_joint_angles(N_MEGABATCH, torch.Generator(device=dev).manual_seed(7), joint_limit_eps=0.02)
     targets_mb = robot.forward_kinematics(q_mb).cpu().numpy()
@@ -438,7 +565,7 @@ def main():
     emit("megabatch", t0, n=N_MEGABATCH, **summary, wall_s=mb_s, sols_per_s=N_MEGABATCH / mb_s, tiers=stats,
          kernel_launches=fused_mlp.launches)
 
-    # 10. diverse: 16 of 128 candidates for one pose, against the first 16 raw candidates.
+    # 11. diverse: 16 of 128 candidates for one pose, against the first 16 raw candidates.
     t0 = time.perf_counter()
     pose = targets[0]
     n_div, oversample = 16, 8
@@ -464,16 +591,19 @@ def main():
     emit("diverse", t0, n=n_div, oversample=oversample, min_pairwise_rad=d_div, raw_min_pairwise_rad=d_raw,
          kernel_launches=fused_mlp.launches)
 
-    # 11. K1 vs plain at the rows the megabatch's chunks (a chunk's poses times
+    # 12. K1 vs plain at the rows the megabatch's chunks (a chunk's poses times
     # its tier's repeat count) and the diverse path gave it.
     t0 = time.perf_counter()
     path_batches = sorted({size * t["repeat"] for t in stats for size in t["chunk_rows"]} | {n_div * oversample})
-    rows_p, max_err_p, _ = kernel_rows(fused_mlp, fused_mlp_plain, subnet_bound, solver.params, path_batches,
+    rows_p, max_err_p, _ = kernel_rows(fused_mlp, fused_mlp_plain, subnet_bound, solver._kernel_params, path_batches,
                                        torch.Generator(device=dev).manual_seed(1), close_fp32)
-    emit("kernel_vs_plain_paths", t0, atol=KERNEL_ATOL, rtol=KERNEL_RTOL, batches=path_batches, rows=rows_p)
+    emit("kernel_vs_plain_paths", t0, atol=KERNEL_ATOL, rtol=KERNEL_RTOL, tight=KERNEL_FP32_TIGHT,
+         tight_share=KERNEL_FP32_TIGHT_SHARE, batches=path_batches, rows=rows_p)
 
     print(json.dumps({"kernels": [
-        kernel_entry("fused_mlp", "bf16_hidden=False: every layer fp32, SIMT FFMA",
+        kernel_entry("fused_mlp", "bf16_hidden=False: fp32 contract, hidden layers 3xTF32 on wgmma m64n128k8 "
+                     "with packed tf32 hi/lo weight planes, 64-row tiles split over 8-CTA clusters, "
+                     "a staging warpgroup, first/last layer fp32 FFMA",
                      "ikflow_tpu_torch/csrc/fused_mlp.cu", main_path_launches, max(max_err, max_err_p), headline),
         kernel_entry("fused_mlp_bf16", "bf16_hidden=True: hidden x hidden layers bf16 on mma.sync, fp32 accumulate",
                      "ikflow_tpu_torch/csrc/fused_mlp_bf16.cu", main_path_launches_bf16, max_err_b, headline_b),

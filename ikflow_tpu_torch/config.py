@@ -1,4 +1,4 @@
-"""Configuration of the PyTorch port: model search dirs, the sigmoid-head
+"""Configuration of the PyTorch port: the model dirs, the sigmoid-head
 scaling bound, and the device rule.
 
 Own copy of what the port needs from ``ikflow_tpu/config.py``; the port
@@ -19,8 +19,9 @@ CACHE_DIR = os.environ.get(
 MODELS_DIR = os.path.join(CACHE_DIR, "models")
 
 # Repo-shipped deploy artifacts (<repo>/models), searched after the user cache.
+# The registry reads both attributes when it resolves a path, so reassigning
+# them after import redirects it.
 REPO_MODELS_DIR = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "models"))
-MODEL_SEARCH_DIRS = (MODELS_DIR, REPO_MODELS_DIR)
 
 # Scaling bound for the padding dims ahead of the sigmoid head.
 SIGMOID_SCALING_ABS_MAX = 1.0

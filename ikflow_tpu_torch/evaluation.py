@@ -1,7 +1,6 @@
-"""Solution grading: pose errors and joint-limit violations.
+"""Solution grading: pose errors, joint-limit violations, self-collisions.
 
-Port of ``ikflow_tpu/evaluation.py`` (with ``solution_diversity``) without
-the self-collision check, which is not ported yet.
+Port of ``ikflow_tpu/evaluation.py`` (with ``solution_diversity``).
 """
 
 from __future__ import annotations
@@ -17,6 +16,7 @@ class SolutionEvaluation(NamedTuple):
     pos_errors: torch.Tensor  # (n,) L2 position error [m]
     rot_errors: torch.Tensor  # (n,) geodesic rotation error [rad]
     joint_limits_exceeded: torch.Tensor  # (n,) bool
+    self_colliding: torch.Tensor  # (n,) bool
 
 
 def pose_errors(poses_1: torch.Tensor, poses_2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -37,6 +37,11 @@ def calculate_joint_limits_exceeded(robot, configs: torch.Tensor) -> torch.Tenso
     return robot.joint_limits_exceeded(configs)
 
 
+def calculate_self_collisions(robot, configs: torch.Tensor) -> torch.Tensor:
+    """Per-config bool: any calibrated capsule pair in contact."""
+    return robot.config_self_collides(configs)
+
+
 def solution_diversity(solutions: torch.Tensor, n_poses: int, n_samples: int) -> torch.Tensor:
     """Per-pose solution spread: mean pairwise joint-space L2 distance (rad).
     ``solutions`` is (n_poses * n_samples, ndof), pose-major; returns
@@ -50,4 +55,5 @@ def solution_diversity(solutions: torch.Tensor, n_poses: int, n_samples: int) ->
 
 def evaluate_solutions(robot, target_poses: torch.Tensor, solutions: torch.Tensor) -> SolutionEvaluation:
     l2, ang = solution_pose_errors(robot, solutions, target_poses)
-    return SolutionEvaluation(l2, ang, calculate_joint_limits_exceeded(robot, solutions))
+    return SolutionEvaluation(l2, ang, calculate_joint_limits_exceeded(robot, solutions),
+                              calculate_self_collisions(robot, solutions))

@@ -4,6 +4,7 @@ from ikflow_tpu_torch.flow.fused_subnet import (
     fused_mlp_bf16_plain,
     fused_mlp_plain,
     prepare_bf16_subnet,
+    prepare_tf32x3_subnet,
 )
 from ikflow_tpu_torch.flow.model import GlowFlow, build_flow
 from ikflow_tpu_torch.flow.params import FlowHyperParams, tiny_model_params
@@ -17,5 +18,6 @@ __all__ = [
     "fused_mlp_bf16_plain",
     "fused_mlp_plain",
     "prepare_bf16_subnet",
+    "prepare_tf32x3_subnet",
     "tiny_model_params",
 ]

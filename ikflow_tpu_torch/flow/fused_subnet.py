@@ -5,11 +5,16 @@ which compiles to one of two bodies by its static flag ``bf16_hidden``. All
 compute ``h <- x``, then ``h <- h W + b`` per layer with LeakyReLU(0.01) after
 all but the last, for a (B, in) fp32 input.
 
-- K1, ``fused_mlp`` (``csrc/fused_mlp.cu``): every layer in fp32. It is bound
-  by fp32 operations: 2 * B * (in*W + 2*W^2 + W*out) FLOP, about 4.2 MFLOP per
-  row at width 1024, against 8.4 MB of weights. Each 16-row tile's
-  activations stay in shared memory across all layers and the weights stream
-  from L2, each weight read feeding 16 FMAs; see the source.
+- K1, ``fused_mlp`` (``csrc/fused_mlp.cu``): the fp32 contract on the tensor
+  cores. The width x width layers run as 3xTF32 on wgmma (each operand split
+  into two TF32 parts, three products summed in fp32, as accurate as fp32
+  FFMA); the first and the last layer are fp32 FFMA. A cluster of
+  width / 128 CTAs shares a 64-row tile, each CTA owning 128 columns of every
+  hidden layer and streaming only those weights; the CTAs read each other's
+  activation slices through distributed shared memory. The hidden weights
+  are split and packed once per parameter set into the kernel's
+  shared-memory layout (``prepare_tf32x3_subnet``), zero-padded to a
+  multiple of 128 columns. One launch shape serves every B; see the source.
 - K1', ``fused_mlp_bf16`` (``csrc/fused_mlp_bf16.cu``): the layers
   ``0 < i < n-1`` take bf16 inputs and bf16 weights with fp32 accumulation,
   on the tensor cores; the first and last layer, biases and activations stay
@@ -24,7 +29,7 @@ tensors on the CPU; for a CUDA tensor it launches its kernel or raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Sequence
+from typing import Callable, Dict, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -32,10 +37,12 @@ import torch.nn.functional as F
 from ikflow_tpu_torch import cuda_build
 
 LEAKY_SLOPE = 0.01
-MAX_LAYERS = 5  # must match csrc/fused_mlp.cu
+MAX_LAYERS = 5  # must match csrc/fused_mlp.cu and csrc/fused_mlp_bf16.cu
 MAX_OUT = 16
-MAX_WIDTH = 1024  # two fp32 buffers of 16 x width rows must fit in shared memory
+MAX_WIDTH = 1024  # K1: a cluster of at most 8 CTAs of 128 columns; K1': shared memory
 MAX_IN_BF16 = 64  # must match csrc/fused_mlp_bf16.cu: the input tile lives in shared memory
+K1_SLICE_COLS = 128  # K1's packed layout: must match kSlice and kChunk in csrc/fused_mlp.cu
+K1_CHUNK = 32
 
 _BOUND: Dict[str, ctypes.CDLL] = {}
 
@@ -124,6 +131,50 @@ def pack_bf16_weight(w: torch.Tensor) -> torch.Tensor:
     return wb.permute(4, 0, 5, 2, 1, 3).contiguous().reshape(-1)  # [nt, kt, g, t, half, e]
 
 
+def split_tf32(x: torch.Tensor):
+    """(hi, lo) with hi = rna_tf32(x), lo = rna_tf32(x - hi), as K1 splits
+    its activations: round to nearest, ties away from zero, on the fp32 bit
+    pattern, keeping the top 19 bits (``cvt.rna.tf32.f32``)."""
+
+    def rna(v: torch.Tensor) -> torch.Tensor:
+        return ((v.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+def _k1_padded(n: int) -> int:
+    return -(-n // K1_SLICE_COLS) * K1_SLICE_COLS
+
+
+def pack_tf32x3_weight(w: torch.Tensor) -> torch.Tensor:
+    """A hidden weight (K, N) fp32, zero-padded to (K', N'), the next
+    multiples of 128, split into its tf32 hi and lo parts and laid out as K1
+    stages it in shared memory, flat: for each 128-column CTA slice c and
+    32-row chunk j, the hi plane then the lo plane, each in wgmma's K-major
+    core-matrix order [n // 8][k // 4][n % 8][k % 4] (column n = 128 c + n,
+    row k = 32 j + k). The padding is exact: a padded column's activation is
+    LeakyReLU(0) = 0, and a padded row meets it with zeros."""
+    K, N = w.shape
+    Kp, Np = _k1_padded(K), _k1_padded(N)
+    planes = torch.stack(split_tf32(F.pad(w, (0, Np - N, 0, Kp - K))))
+    planes = planes.reshape(2, Kp // K1_CHUNK, 8, 4, Np // K1_SLICE_COLS, 16, 8)  # [p, j, kb, k4, c, nb, n8]
+    return planes.permute(4, 1, 0, 5, 2, 6, 3).contiguous().reshape(-1)  # [c, j, p, nb, kb, n8, k4]
+
+
+def _tf32x3_numel(w: torch.Tensor) -> int:
+    return 2 * _k1_padded(w.shape[0]) * _k1_padded(w.shape[1])
+
+
+def prepare_tf32x3_subnet(layers: Sequence[Dict[str, torch.Tensor]]):
+    """The subnet's layers with each hidden layer's packed tf32 hi/lo planes
+    added under ``"wp"``: done once per parameter set, read by every K1
+    launch."""
+    n = len(layers)
+    return [dict(layer, wp=pack_tf32x3_weight(layer["w"])) if 0 < i < n - 1 else layer
+            for i, layer in enumerate(layers)]
+
+
 def prepare_bf16_subnet(layers: Sequence[Dict[str, torch.Tensor]]):
     """The subnet's layers with each hidden layer's packed bf16 weight added
     under ``"wp"``: done once per parameter set, read by every K1' launch."""
@@ -134,6 +185,7 @@ def prepare_bf16_subnet(layers: Sequence[Dict[str, torch.Tensor]]):
 
 def _check(x: torch.Tensor, layers: Sequence[Dict[str, torch.Tensor]], width_multiple: int = 4,
            max_in: int = MAX_WIDTH) -> None:
+    """Raise on what the kernels do not take; the defaults are K1's limits."""
     if not 2 <= len(layers) <= MAX_LAYERS:
         raise ValueError(f"fused_mlp takes 2..{MAX_LAYERS} layers, got {len(layers)}")
     if x.ndim != 2:
@@ -164,17 +216,37 @@ def _check(x: torch.Tensor, layers: Sequence[Dict[str, torch.Tensor]], width_mul
             raise ValueError("fused_mlp needs 16-byte aligned tensors")
 
 
+def _check_packed(x: torch.Tensor, layers: Sequence[Dict[str, torch.Tensor]], dtype: torch.dtype,
+                  packed_numel: Callable[[torch.Tensor], int], prepare: str) -> None:
+    """Each hidden layer carries its packed weight ``"wp"`` of
+    ``packed_numel(w)`` elements, contiguous, 16-byte aligned, on x's
+    device."""
+    for i, layer in enumerate(layers[1:-1], start=1):
+        wp = layer.get("wp")
+        if wp is None:
+            raise ValueError(f"layer {i} has no packed weight: prepare the subnet once with {prepare}")
+        n = packed_numel(layer["w"])
+        if wp.dtype != dtype or wp.numel() != n or not wp.is_contiguous():
+            raise ValueError(f"layer {i}: packed weight must be contiguous {dtype} of {n} elements")
+        if wp.device != x.device or wp.data_ptr() % 16:
+            raise ValueError(f"layer {i}: packed weight must be 16-byte aligned on {x.device}")
+
+
 def fused_mlp(x: torch.Tensor, layers: Sequence[Dict[str, torch.Tensor]]) -> torch.Tensor:
     """Subnet MLP: x (B, in) -> (B, out). ``layers`` is a list of
-    ``{"w": (K, N), "b": (N,)}``, hidden widths equal, last N <= 16."""
+    ``{"w": (K, N), "b": (N,)}``, hidden widths equal, a multiple of 4 up to
+    1024, in <= width, last N <= 16; on the card from
+    ``prepare_tf32x3_subnet`` (hidden layers carry their packed planes
+    ``"wp"``)."""
     if x.device.type == "cpu":
         return fused_mlp_plain(x, layers)
     if x.device.type != "cuda":
         raise ValueError(f"fused_mlp runs on CUDA or CPU tensors, got {x.device}")
     _check(x, layers)
-    lib = _library("fused_mlp", "ikflow_fused_mlp", 2, "ikflow_cuda_error_string")
+    _check_packed(x, layers, torch.float32, _tf32x3_numel, "prepare_tf32x3_subnet")
+    lib = _library("fused_mlp", "ikflow_fused_mlp", 3, "ikflow_cuda_error_string")
     out = _launch(lib, "ikflow_fused_mlp", "ikflow_cuda_error_string", x, layers,
-                  _pointers(layers, "w"), _pointers(layers, "b"))
+                  _pointers(layers, "w"), _pointers(layers, "wp"), _pointers(layers, "b"))
     if x.shape[0]:
         fused_mlp.launches += 1
     return out
@@ -185,14 +257,7 @@ fused_mlp.launches = 0  # kernel launches; the plain CPU path does not count
 
 def _check_bf16(x: torch.Tensor, layers: Sequence[Dict[str, torch.Tensor]]) -> None:
     _check(x, layers, width_multiple=16, max_in=MAX_IN_BF16)
-    for i, layer in enumerate(layers[1:-1], start=1):
-        wp = layer.get("wp")
-        if wp is None:
-            raise ValueError(f"layer {i} has no packed bf16 weight: prepare the subnet once with prepare_bf16_subnet")
-        if wp.dtype != torch.bfloat16 or wp.numel() != layer["w"].numel() or not wp.is_contiguous():
-            raise ValueError(f"layer {i}: packed weight must be contiguous bf16 of {layer['w'].numel()} elements")
-        if wp.device != x.device or wp.data_ptr() % 16:
-            raise ValueError(f"layer {i}: packed weight must be 16-byte aligned on {x.device}")
+    _check_packed(x, layers, torch.bfloat16, torch.Tensor.numel, "prepare_bf16_subnet")
 
 
 def fused_mlp_bf16(x: torch.Tensor, layers: Sequence[Dict[str, torch.Tensor]]) -> torch.Tensor:

@@ -13,8 +13,9 @@ layer ``{"w": (K, N), "b": (N,)}``: the JAX pytree's structure.
 ``forward`` (q -> z, with logdet) runs the plain subnet. ``inverse``
 (z -> q, the inference path) runs every subnet through ``fused_mlp`` (K1), or
 ``fused_mlp_bf16`` (K1') when ``hp.bf16_hidden``: the CUDA kernel for tensors
-on the card, its plain version on the CPU. K1' reads its hidden weights in
-bf16, packed once per parameter set by ``kernel_params``.
+on the card, its plain version on the CPU. Both read their hidden weights
+packed once per parameter set by ``kernel_params``: K1 as tf32 hi/lo planes
+(on the card only), K1' as bf16.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from ikflow_tpu_torch.flow.fused_subnet import (
     fused_mlp_bf16_plain,
     fused_mlp_plain,
     prepare_bf16_subnet,
+    prepare_tf32x3_subnet,
 )
 from ikflow_tpu_torch.flow.params import FlowHyperParams
 
@@ -135,12 +137,18 @@ class GlowFlow:
         )
 
     def kernel_params(self, params):
-        """``params`` as ``inverse`` reads them: with ``bf16_hidden`` every
-        subnet's hidden layers also carry their packed bf16 weight (built here,
-        once per parameter set); otherwise ``params`` itself."""
-        if not self.hp.bf16_hidden:
+        """``params`` as ``inverse`` reads them, built here once per parameter
+        set: every subnet's hidden layers also carry their packed weight, bf16
+        with ``bf16_hidden``, else K1's tf32 hi/lo planes. The fp32 planes are
+        built only for parameters on the card: the CPU runs the plain
+        version, which reads ``params`` itself."""
+        if self.hp.bf16_hidden:
+            prepare = prepare_bf16_subnet
+        elif params[0]["s1"][0]["w"].is_cuda:
+            prepare = prepare_tf32x3_subnet
+        else:
             return params
-        return tuple({s: prepare_bf16_subnet(block[s]) for s in ("s1", "s2")} for block in params)
+        return tuple({s: prepare(block[s]) for s in ("s1", "s2")} for block in params)
 
     # ------------------------------------------------------------------
     def _clamped(self, s: torch.Tensor) -> torch.Tensor:

@@ -62,7 +62,9 @@ def model_descriptions() -> Dict[str, Dict]:
 
 def resolve_weights_path(entry: Dict) -> Optional[str]:
     """Absolute path of an entry's weights: absolute, ``file://``, or relative
-    to the first of ``config.MODEL_SEARCH_DIRS`` that holds it."""
+    to the first of ``config.MODELS_DIR`` (the user cache) and
+    ``config.REPO_MODELS_DIR`` that holds it, else to the cache. Both are read
+    at call time, so a cache redirected after import is honored."""
     wp = entry.get("weights_path")
     if wp is None:
         return None
@@ -70,7 +72,7 @@ def resolve_weights_path(entry: Dict) -> Optional[str]:
         wp = wp[len("file://") :]
     if os.path.isabs(wp):
         return wp
-    candidates = [os.path.join(d, wp) for d in config.MODEL_SEARCH_DIRS]
+    candidates = [os.path.join(d, wp) for d in (config.MODELS_DIR, config.REPO_MODELS_DIR)]
     return next((c for c in candidates if os.path.exists(c)), candidates[0])
 
 

@@ -192,7 +192,8 @@ class IKFlowSolver:
         """Sample IK solutions for pose(s) ``y``: (7,) with n > 0, or (n, 7).
 
         Returns (n, ndof) solutions, or with ``return_detailed``
-        (solutions, pos_errors, rot_errors, joint_limits_exceeded).
+        (solutions, pos_errors, rot_errors, joint_limits_exceeded,
+        self_colliding).
         """
         self._check_loaded(allow_uninitialized)
         y = self._tensor(y)

@@ -170,7 +170,8 @@ def test_bf16_solver_explicit_latent_matches_jax(sigmoid):
     out_t = ts.generate_ik_solutions(poses, latent=torch.from_numpy(latent), return_detailed=True)
     out_j = js.generate_ik_solutions(jnp.asarray(poses), latent=jnp.asarray(latent), return_detailed=True,
                                      allow_uninitialized=True)
-    for t, j in zip(out_t, out_j[:4]):
+    assert len(out_t) == len(out_j) == 5  # solutions, pos, rot, limits, self_colliding
+    for t, j in zip(out_t, out_j):
         assert_bf16_close(t.numpy(), np.asarray(j))
 
 

@@ -67,23 +67,38 @@ def test_wrapper_refuses_other_devices():
 
 
 def _bad_inputs():
+    """Inputs K1 refuses (hidden width a multiple of 4 up to 1024, input
+    width up to the hidden width, last width up to 16, 2..5 layers, fp32,
+    contiguous)."""
     rng = np.random.default_rng(1)
     good = _torch_layers(_np_subnet(rng, (10, 64, 64, 8)))
     x = torch.zeros(4, 10)
     wide = _torch_layers(_np_subnet(rng, (10, 1028, 8)))
+    ragged_width = _torch_layers(_np_subnet(rng, (10, 66, 8)))
+    wide_input = _torch_layers(_np_subnet(rng, (65, 64, 8)))
     narrow_out = _torch_layers(_np_subnet(rng, (10, 64, 20)))
     half = [{k: v.half() for k, v in layer.items()} for layer in good]
     strided = [dict(layer) for layer in good]
     strided[1]["w"] = torch.zeros(64, 128)[:, ::2]
     return {
         "one_layer": (x, good[:1]),
+        "six_layers": (x, _torch_layers(_np_subnet(rng, (10, 64, 64, 64, 64, 64, 8)))),
         "width_over_1024": (x, wide),
+        "width_not_multiple_of_4": (x, ragged_width),
+        "input_over_width": (torch.zeros(4, 65), wide_input),
         "out_over_16": (x, narrow_out),
         "fp16": (x, half),
         "non_contiguous": (x, strided),
         "input_width": (torch.zeros(4, 9), good),
         "x_1d": (torch.zeros(10), good),
     }
+
+
+def test_kernel_input_checks_pass_what_k1_takes():
+    rng = np.random.default_rng(2)
+    for dims in [(10, 1024, 1024, 1024, 8), (11, 1024, 1024, 1024, 6), (13, 256, 256, 10), (64, 128, 16),
+                 (10, 320, 320, 8), (100, 200, 200, 16), (1000, 1000, 6), (4, 4, 1)]:
+        fused_subnet._check(torch.zeros(3, dims[0]), _torch_layers(_np_subnet(rng, dims)))
 
 
 @pytest.mark.parametrize("case", sorted(_bad_inputs()))

@@ -1,5 +1,5 @@
-"""Tests of the CUDA kernels K1 (fp32) and K1' (bf16 hidden layers) on the
-card. They skip where no CUDA device is present (decided inside each test);
+"""Tests of the CUDA kernels K1 (fp32 contract, 3xTF32 tensor cores) and K1'
+(bf16 hidden layers) on the card. They skip where no CUDA device is present (decided inside each test);
 run them on the card with
 
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest
@@ -8,6 +8,7 @@ run them on the card with
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from ikflow_tpu_torch.flow import (
     fused_mlp,
@@ -15,8 +16,10 @@ from ikflow_tpu_torch.flow import (
     fused_mlp_bf16_plain,
     fused_mlp_plain,
     prepare_bf16_subnet,
+    prepare_tf32x3_subnet,
     tiny_model_params,
 )
+from ikflow_tpu_torch.flow.fused_subnet import LEAKY_SLOPE, split_tf32
 from ikflow_tpu_torch.robots import get_robot
 from ikflow_tpu_torch.solver import IKFlowSolver
 
@@ -39,10 +42,39 @@ def _subnet(dims, device, seed):
     ]
 
 
-@pytest.mark.parametrize("B", [1, 15, 16, 17, 1000, 10000])
-@pytest.mark.parametrize("dims", [(10, 1024, 1024, 1024, 8), (11, 1024, 1024, 1024, 6), (13, 256, 256, 10)])
+def _float64(x, layers):
+    h = x.double()
+    for i, layer in enumerate(layers):
+        h = torch.addmm(layer["b"].double(), h, layer["w"].double())
+        if i < len(layers) - 1:
+            h = F.leaky_relu(h, LEAKY_SLOPE)
+    return h
+
+
+def _plain_tf32(x, layers):
+    """K1's function with plain TF32 in the hidden layers (operands rounded
+    to tf32, exact products, fp32 sums): what K1 must not be."""
+    h, n = x, len(layers)
+    for i, layer in enumerate(layers):
+        if 0 < i < n - 1:
+            h = split_tf32(h)[0] @ split_tf32(layer["w"])[0] + layer["b"]
+        else:
+            h = torch.addmm(layer["b"], h, layer["w"])
+        if i < n - 1:
+            h = F.leaky_relu(h, LEAKY_SLOPE)
+    return h
+
+
+# Ragged row counts around K1's 64-row tiles, and the serving path's; widths
+# that are multiples of 128 (cluster sizes 1-8) and widths K1 zero-pads.
+@pytest.mark.parametrize("B", [1, 15, 16, 17, 63, 64, 65, 127, 1000, 3000, 10000])
+@pytest.mark.parametrize("dims", [
+    (10, 1024, 1024, 1024, 8), (11, 1024, 1024, 1024, 6), (13, 256, 256, 10), (12, 128, 5),
+    (16, 128, 128, 128, 128, 16), (64, 1024, 1024, 3), (10, 384, 384, 384, 8),
+    (10, 320, 320, 8), (11, 1000, 1000, 1000, 6), (100, 200, 200, 16), (20, 36, 5),
+])
 def test_kernel_matches_plain(cuda, B, dims):
-    layers = _subnet(dims, cuda, seed=B)
+    layers = prepare_tf32x3_subnet(_subnet(dims, cuda, seed=B))
     x = torch.randn((B, dims[0]), generator=torch.Generator(device=cuda).manual_seed(1), device=cuda)
     before = fused_mlp.launches
     out = fused_mlp(x, layers)
@@ -50,16 +82,30 @@ def test_kernel_matches_plain(cuda, B, dims):
     assert fused_mlp.launches == before + 1
     # fp32 sums over K <= 1024 in another order than cuBLAS
     torch.testing.assert_close(out, fused_mlp_plain(x, layers), atol=1e-4, rtol=1e-4)
+    # The fp32 contract against float64, relative to the largest output: the
+    # tolerance that plain TF32 fails (checked from 1000 rows, on the same
+    # inputs), so a K1 that dropped a pass of 3xTF32 fails here.
+    ref = _float64(x, layers)
+    tol = 1e-5 * max(1.0, float(ref.abs().max()))
+    assert float((out.double() - ref).abs().max()) <= tol
+    if len(dims) > 3 and B >= 1000:
+        assert float((_plain_tf32(x, layers).double() - ref).abs().max()) > tol
 
 
 def test_kernel_refuses_what_it_does_not_take(cuda):
-    layers = _subnet((10, 64, 8), cuda, seed=0)
+    layers = prepare_tf32x3_subnet(_subnet((10, 128, 128, 8), cuda, seed=0))
     with pytest.raises(ValueError):
         fused_mlp(torch.zeros((4, 20), device=cuda)[:, ::2], layers)
     with pytest.raises(TypeError):
         fused_mlp(torch.zeros((4, 10), device=cuda, dtype=torch.float64), layers)
     with pytest.raises(ValueError):
         fused_mlp(torch.zeros((4, 10), device=cuda), [{k: v.cpu() for k, v in lay.items()} for lay in layers])
+    with pytest.raises(ValueError):  # width 66 is no multiple of 4
+        fused_mlp(torch.zeros((4, 10), device=cuda), prepare_tf32x3_subnet(_subnet((10, 66, 8), cuda, seed=0)))
+    with pytest.raises(ValueError):  # input wider than the hidden width
+        fused_mlp(torch.zeros((4, 130), device=cuda), prepare_tf32x3_subnet(_subnet((130, 128, 128, 8), cuda, 0)))
+    with pytest.raises(ValueError):  # hidden weights never packed
+        fused_mlp(torch.zeros((4, 10), device=cuda), _subnet((10, 128, 128, 8), cuda, seed=0))
 
 
 def test_flow_inverse_runs_the_kernel(cuda):

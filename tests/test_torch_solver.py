@@ -4,6 +4,7 @@ exact-IK machinery on a tiny flow.
 Randomness differs between the frameworks (threefry vs Philox), so parity
 tests pass explicit latents; contract tests compare validity, not bits."""
 
+import json
 import math
 import os
 
@@ -14,6 +15,7 @@ import pytest
 import torch
 import yaml
 
+from ikflow_tpu import config as jax_config
 from ikflow_tpu import registry as jax_registry
 from ikflow_tpu.flow import tiny_model_params as jax_tiny
 from ikflow_tpu.robots import get_robot as jax_get_robot
@@ -21,7 +23,7 @@ from ikflow_tpu.solver import IKFlowSolver as JaxSolver
 from ikflow_tpu.solver import derive_retry_capacities as jax_derive_retry_capacities
 from ikflow_tpu_torch import config, registry
 from ikflow_tpu_torch.checkpoints import params_from_jax
-from ikflow_tpu_torch.flow import tiny_model_params
+from ikflow_tpu_torch.flow import FlowHyperParams, tiny_model_params
 from ikflow_tpu_torch.robots import get_robot
 from ikflow_tpu_torch.solver import (
     IKFlowSolver,
@@ -63,7 +65,8 @@ def test_generate_ik_solutions_explicit_latent_matches_jax(sigmoid):
                                          return_detailed=True)
         out_j = js.generate_ik_solutions(jnp.asarray(poses), latent=jnp.asarray(latent),
                                          clamp_to_joint_limits=clamp, return_detailed=True, allow_uninitialized=True)
-        for t, j in zip(out_t, out_j[:4]):
+        assert len(out_t) == len(out_j) == 5  # solutions, pos, rot, limits, self_colliding
+        for t, j in zip(out_t, out_j):
             np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=1e-4, rtol=0)
 
 
@@ -185,9 +188,52 @@ def test_model_descriptions_equal_to_jax():
 
 
 def test_registry_without_weights(monkeypatch, tmp_path):
-    monkeypatch.setattr(config, "MODEL_SEARCH_DIRS", (str(tmp_path),))
+    monkeypatch.setattr(config, "MODELS_DIR", str(tmp_path))
+    monkeypatch.setattr(config, "REPO_MODELS_DIR", str(tmp_path))
     with pytest.raises(FileNotFoundError):
         registry.get_ik_solver("panda_lite_tpm", device="cpu")
+
+
+def _write_deploy(path, jax_solver, robot_name):
+    """A deploy ``.npz`` as the JAX package exports it: fp16 leaves keyed
+    ``i/s{1,2}/j/{w,b}`` and a JSON header."""
+    flat = {f"{i}/{s}/{j}/{k}": np.asarray(layer[k]).astype(np.float16)
+            for i, block in enumerate(jax_solver.params) for s in ("s1", "s2")
+            for j, layer in enumerate(block[s]) for k in ("w", "b")}
+    header = {"format_version": 1, "robot_name": robot_name, "hyper_parameters": jax_solver.flow.hp.to_dict(),
+              "stored_dtype": "float16"}
+    np.savez_compressed(path, __header__=np.frombuffer(json.dumps(header).encode(), dtype=np.uint8), **flat)
+
+
+def test_models_dir_redirect_after_import(monkeypatch, tmp_path):
+    """``config.MODELS_DIR`` reassigned after import redirects the port's
+    registry exactly as it redirects the JAX package's."""
+    js, _ = _solver_pair(sigmoid=True)
+    entry = dict(js.flow.hp.to_dict(), robot_name="panda", weights_path="tiny_redirect.npz")
+    for reg in (registry, jax_registry):
+        monkeypatch.setattr(reg, "model_descriptions", lambda: {"tiny": entry})
+    empty, cache = tmp_path / "empty", tmp_path / "cache"
+    empty.mkdir()
+    cache.mkdir()
+    _write_deploy(str(cache / "tiny_redirect.npz"), js, "panda")
+    for cfg in (config, jax_config):
+        monkeypatch.setattr(cfg, "MODELS_DIR", str(empty))
+    missing = registry.resolve_weights_path(entry)
+    assert missing == jax_registry.resolve_weights_path(entry) == str(empty / "tiny_redirect.npz")
+    with pytest.raises(FileNotFoundError):
+        registry.get_ik_solver("tiny", device="cpu")
+    for cfg in (config, jax_config):
+        cfg.MODELS_DIR = str(cache)
+    found = registry.resolve_weights_path(entry)
+    assert found == jax_registry.resolve_weights_path(entry) == str(cache / "tiny_redirect.npz")
+    ts, thp = registry.get_ik_solver("tiny", device="cpu")
+    jloaded, _ = jax_registry.get_ik_solver("tiny")
+    assert thp == FlowHyperParams.from_dict(entry)
+    for jb, tb in zip(jloaded.params, ts.params):
+        for s in ("s1", "s2"):
+            for jl, tl in zip(jb[s], tb[s]):
+                for k in ("w", "b"):
+                    np.testing.assert_array_equal(tl[k].numpy(), np.asarray(jl[k]))
 
 
 def _sigmoid_weights():
