@@ -20,7 +20,11 @@ import faulthandler; faulthandler.dump_traceback_later(300, exit=True)  # noqa: 
 #    tensor-core route) and,
 #    at 1000 and 10000 rows, with cold L2 (calls rotating over all 24
 #    subnets, as the solve does);
-# 3. kernel_vs_plain_bf16: K1' against its plain bf16 version, the same way;
+# 3. kernel_vs_plain_bf16: K1' against its plain bf16 version, the same way,
+#    at K1's row counts, with K1's time on the same inputs beside it, and the
+#    build's resources and occupancy of K1'; then on all 24 shipped subnets at
+#    1000 and 10000 rows, its contract scaled by the size of each subnet's
+#    outputs, beside both fp32 versions' gaps to the float64 sums;
 # 4. self_collision: ``config_self_collides`` on 100000 uniform Panda samples
 #    on the card against the CPU port on the same samples;
 # 5. approx: ``generate_ik_solutions`` on 1000 poses (24 K1 launches), with
@@ -32,10 +36,19 @@ import faulthandler; faulthandler.dump_traceback_later(300, exit=True)  # noqa: 
 # 8. flow_vs_cpu: the card's flow against the plain flow on the CPU, 64 rows;
 # 9. approx_bf16, exact_bf16, profile_bf16, flow_vs_cpu_bf16: the same through
 #    a solver built with ``hp.bf16_hidden = True`` on the same weights (K1');
-# 10. megabatch: 100000 reachable poses through ``solve_exact_megabatch``;
+# 10. megabatch, megabatch_bf16: 100000 reachable poses through
+#     ``solve_exact_megabatch``, on the fp32 and on the bf16 solver;
 # 11. diverse: ``generate_diverse_ik_solutions`` for one pose;
 # 12. kernel_vs_plain_paths: K1 against addmm + leaky_relu at the row counts
-#     the megabatch and diverse paths gave it.
+#     the megabatch and diverse paths gave it, and K1' against its plain
+#     version at the row counts the bf16 megabatch gave it.
+#
+# A kernel's ``ms`` (and ``plain_ms``, ``k1_ms``, ``cold_l2_ms``) is time per
+# call with the calls launched one by one from Python between CUDA events, as
+# every earlier version of this script measured it; under about 0.07 ms it is
+# the host's launch overhead more than the kernel. ``graph_ms`` (and
+# ``plain_graph_ms``, ``k1_graph_ms``, ``cold_l2_graph_ms``) is device time per
+# call: the same calls captured in a CUDA graph and replayed.
 #
 # Every phase prints one JSON line; any failed check raises. The last line is
 # ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero and
@@ -46,6 +59,7 @@ import ctypes  # noqa: E402
 import dataclasses  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
+import re  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
 import time  # noqa: E402
@@ -118,6 +132,41 @@ def cuda_ms(fn, iters, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, reps=20, rounds=20):
+    """Device time per call of ``fn``: ``reps`` calls captured in one CUDA
+    graph, replayed ``rounds`` times between CUDA events."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up on a side stream, as graph capture wants
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(rounds):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * rounds)
+
+
+def ptxas_resources(log):
+    """Registers, spills and stack of the one kernel in an nvcc -Xptxas -v log."""
+    def grab(pattern):
+        m = re.search(pattern, log)
+        return int(m.group(1)) if m else None
+
+    return {"registers": grab(r"Used (\d+) registers"), "spill_stores_bytes": grab(r"(\d+) bytes spill stores"),
+            "spill_loads_bytes": grab(r"(\d+) bytes spill loads"), "stack_frame_bytes": grab(r"(\d+) bytes stack frame")}
 
 
 def _bound(t_ops, t_bytes, flops):
@@ -257,11 +306,12 @@ def profile_exact(solver, targets, g):
     }
 
 
-def cold_l2_ms(kernel, params, B, gen, rounds=2):
+def cold_l2_ms(kernel, params, B, gen, rounds=4):
     """Per-call time with the weights cold in L2: each round calls the kernel
     once on every subnet of ``params`` in turn (24 for panda__full__sigmoid,
     as one flow inverse does), so a call finds its weights evicted by the 23
-    before it. -> (ms per call, bytes of weights per round)."""
+    before it. -> (eager ms per call, graph ms per call, bytes of weights per
+    round)."""
     dev = torch.device("cuda")
     subnets = [blk[s] for blk in params for s in ("s1", "s2")]
     xs = {}
@@ -276,18 +326,21 @@ def cold_l2_ms(kernel, params, B, gen, rounds=2):
             kernel(x, layers)
 
     nbytes = sum(t.numel() * t.element_size() for layers in subnets for lay in layers for t in lay.values())
-    return cuda_ms(one_round, rounds, warmup=1) / len(calls), nbytes
+    return (cuda_ms(one_round, rounds, warmup=1) / len(calls),
+            graph_ms(one_round, reps=1, rounds=rounds) / len(calls), nbytes)
 
 
 def kernel_rows(kernel, plain, bound, params, batches, gen, close, contrast=None, cold_batches=(),
-                refuse_contrast_from=None):
+                refuse_contrast_from=None, beside=None):
     """A kernel against its plain version on block 0's subnets of ``params``
     (``close(out, ref)`` lists the failures of its contract), and, where
     given, against a ``contrast`` function it must not match: -> (rows, max
     abs err, the B = 10000 s1 row). At ``cold_batches`` the s1 row also has
     the cold-L2 time over all of ``params``' subnets. From
     ``refuse_contrast_from`` rows up, the contrast itself must fail the
-    contract against the plain version."""
+    contract against the plain version. ``beside`` = (name, kernel, params):
+    another kernel timed on the same inputs, on its own copy of the
+    subnets."""
     dev = torch.device("cuda")
     rows, max_err, headline = [], 0.0, None
     for B in batches:
@@ -302,16 +355,22 @@ def kernel_rows(kernel, plain, bound, params, batches, gen, close, contrast=None
             fails = close(out_k, out_p)
             check(not fails, f"kernel disagrees with plain at B={B} {sname}: {fails}")
             iters = 20 if B >= 10000 else 50
-            ms = cuda_ms(lambda: kernel(x, layers), iters)
-            plain_ms = cuda_ms(lambda: plain(x, layers), iters)
+            ms, g_ms = cuda_ms(lambda: kernel(x, layers), iters), graph_ms(lambda: kernel(x, layers))
             bounds = bound(B, layers)
             flops = bounds.pop("flops")
             row = {"B": B, "subnet": sname, "shape": [layers[0]["w"].shape[0], layers[-1]["w"].shape[1]],
                    "max_abs_err": float(err.max()), "share_within_1e-5": float((err <= 1e-5).float().mean()),
-                   "ms": ms, "plain_ms": plain_ms, **bounds, "kernel_tflops": flops / ms / 1e9,
-                   "roofline_share": bounds["bound_ms"] / ms}
+                   "ms": ms, "graph_ms": g_ms, "plain_ms": cuda_ms(lambda: plain(x, layers), iters),
+                   "plain_graph_ms": graph_ms(lambda: plain(x, layers)), **bounds,
+                   "kernel_tflops": flops / ms / 1e9, "roofline_share": bounds["bound_ms"] / ms,
+                   "graph_roofline_share": bounds["bound_ms"] / g_ms}
+            if beside is not None:
+                name, other, other_params = beside
+                row[f"{name}_ms"] = cuda_ms(lambda: other(x, other_params[0][sname]), iters)
+                row[f"{name}_graph_ms"] = graph_ms(lambda: other(x, other_params[0][sname]))
             if B in cold_batches and sname == "s1":
-                row["cold_l2_ms"], row["cold_l2_weight_bytes_per_round"] = cold_l2_ms(kernel, params, B, gen)
+                (row["cold_l2_ms"], row["cold_l2_graph_ms"],
+                 row["cold_l2_weight_bytes_per_round"]) = cold_l2_ms(kernel, params, B, gen)
             if contrast is not None:
                 out_c = contrast(x, layers)
                 other = (out_k - out_c).abs()
@@ -374,8 +433,9 @@ def main():
         builds = dict(zip(names, pool.map(cuda_build.build, names)))
     for res in builds.values():
         print(res.log.strip(), flush=True)
+    resources = {n: ptxas_resources(r.log) for n, r in builds.items()}
     emit("build", t0, libraries={n: os.path.relpath(r.path, ROOT) for n, r in builds.items()},
-         nvcc_seconds={n: round(r.seconds, 3) for n, r in builds.items()})
+         nvcc_seconds={n: round(r.seconds, 3) for n, r in builds.items()}, resources=resources)
 
     # 1. device
     t0 = time.perf_counter()
@@ -444,11 +504,58 @@ def main():
             fails.append(f"{share} of outputs within {KERNEL_BF16_TIGHT}, under {KERNEL_BF16_TIGHT_SHARE}")
         return fails
 
+    # K1's row counts: the exact tiers' and the megabatch's, one pose and the diverse path's 128.
     rows_b, max_err_b, headline_b = kernel_rows(fused_mlp_bf16, fused_mlp_bf16_plain, subnet_bound_bf16,
-                                                solver_bf16._kernel_params, (1, 1000, 3000, 10000, 32768), gen,
-                                                close_bf16, contrast=fused_mlp_plain, cold_batches=(1000, 10000))
+                                                solver_bf16._kernel_params,
+                                                (1, 128, 1000, 2048, 3000, 6144, 10000, 20480, 24576, 32768), gen,
+                                                close_bf16, contrast=fused_mlp_plain, cold_batches=(1000, 10000),
+                                                beside=("k1", fused_mlp, solver._kernel_params))
+    def plain_bf16_f64(x, layers):
+        """K1''s function with every sum in float64, where the products of
+        bf16 operands are exact: the value both fp32 versions round."""
+        h, n = x.double(), len(layers)
+        for i, lay in enumerate(layers):
+            w = lay["w"].to(torch.bfloat16) if 0 < i < n - 1 else lay["w"]
+            h = (h.to(torch.bfloat16) if 0 < i < n - 1 else h).double() @ w.double() + lay["b"].double()
+            if i < n - 1:
+                h = torch.nn.functional.leaky_relu(h, LEAKY_SLOPE)
+        return h
+
+    def gap(out, ref, scale):
+        err = (out - ref.float()).abs()
+        return {"max_abs_err": float(err.max()), "share_within_1e-5": float((err <= KERNEL_BF16_TIGHT).float().mean()),
+                "share_within_scaled": float((err <= KERNEL_BF16_TIGHT * scale).float().mean())}
+
+    # K1' on every shipped subnet, held to its contract scaled by the size of
+    # the subnet's outputs (they reach about 1100 in block 5, where an fp32 ulp
+    # is 6e-5), with the kernel's and the plain version's gaps to the float64
+    # sums beside it: a second witness that the gaps are rounding.
+    every_subnet, gen_s = [], torch.Generator(device=dev).manual_seed(3)
+    for B in (1000, 10000):
+        for bi, blk in enumerate(solver_bf16._kernel_params):
+            for sname in ("s1", "s2"):
+                layers = blk[sname]
+                x = torch.randn((B, layers[0]["w"].shape[0]), generator=gen_s, device=dev)
+                out_k, out_p = fused_mlp_bf16(x, layers), fused_mlp_bf16_plain(x, layers)
+                out_e = plain_bf16_f64(x, layers)
+                scale = max(1.0, float(out_p.abs().max()))
+                row = {"B": B, "block": bi, "subnet": sname, "out_abs_max": float(out_p.abs().max()),
+                       **gap(out_k, out_p, scale), "kernel_vs_f64": gap(out_k, out_e, scale),
+                       "plain_vs_f64": gap(out_p, out_e, scale)}
+                check(bool(torch.isfinite(out_k).all()) and row["max_abs_err"] <= KERNEL_BF16_LOOSE * scale
+                      and row["share_within_scaled"] >= KERNEL_BF16_TIGHT_SHARE,
+                      f"K1' disagrees with plain beyond its scaled contract: {row}")
+                every_subnet.append(row)
+    lib_b = cuda_build.load("fused_mlp_bf16")
+    ctas_b, clusters_b = ctypes.c_int(0), ctypes.c_int(0)
+    lib_b.ikflow_fused_mlp_bf16_occupancy.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                                                      ctypes.POINTER(ctypes.c_int)]
+    check(lib_b.ikflow_fused_mlp_bf16_occupancy(hp.coeff_fn_internal_size, ctypes.byref(ctas_b),
+                                                ctypes.byref(clusters_b)) == 0, "K1' occupancy query failed")
     emit("kernel_vs_plain_bf16", t0, tight=KERNEL_BF16_TIGHT, tight_share=KERNEL_BF16_TIGHT_SHARE,
-         loose=KERNEL_BF16_LOOSE, contrast="fused_mlp_plain (fp32)", rows=rows_b)
+         loose=KERNEL_BF16_LOOSE, contrast="fused_mlp_plain (fp32)", build=resources["fused_mlp_bf16"],
+         smem_bytes_per_cta=lib_b.ikflow_fused_mlp_bf16_smem_bytes(), ctas_per_sm=ctas_b.value,
+         max_active_clusters=clusters_b.value, rows=rows_b, every_subnet=every_subnet)
 
     # 4. Self-collision on the card against the CPU port, on the same uniform samples.
     t0 = time.perf_counter()
@@ -546,24 +653,31 @@ def main():
          **profile_exact(solver_bf16, targets, g))
     flow_vs_cpu(solver_bf16, "_bf16", FLOW_BF16_ATOL, FLOW_BF16_MEAN_ATOL)
 
-    # 10. megabatch: 100000 reachable poses streamed through the fp32 solver.
-    t0 = time.perf_counter()
+    # 10. megabatch: 100000 reachable poses streamed through the fp32 solver,
+    # then through the bf16 solver (K1').
     q_mb = robot.sample_joint_angles(N_MEGABATCH, torch.Generator(device=dev).manual_seed(7), joint_limit_eps=0.02)
     targets_mb = robot.forward_kinematics(q_mb).cpu().numpy()
-    fused_mlp.launches = 0
-    fused_mlp_bf16.launches = 0
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    sols_mb, valids_mb, stats = solve_exact_megabatch(
-        solver, targets_mb, seed=0, pos_error_threshold=1e-3, rot_error_threshold=0.01, return_stats=True,
-    )
-    mb_s = time.perf_counter() - t1
-    check(sols_mb.shape == (N_MEGABATCH, robot.ndof) and bool(np.isfinite(sols_mb).all()), "bad megabatch output")
-    check(fused_mlp.launches == 2 * hp.nb_nodes * sum(t["chunks"] for t in stats) and fused_mlp_bf16.launches == 0,
-          f"megabatch ran K1 {fused_mlp.launches} times, K1' {fused_mlp_bf16.launches} times for {stats}")
-    summary = check_solutions(robot, sols_mb, valids_mb, targets_mb, 0.99, 0.01)
-    emit("megabatch", t0, n=N_MEGABATCH, **summary, wall_s=mb_s, sols_per_s=N_MEGABATCH / mb_s, tiers=stats,
-         kernel_launches=fused_mlp.launches)
+
+    def megabatch(slv, phase, kernel, other):
+        t0 = time.perf_counter()
+        kernel.launches = 0
+        other.launches = 0
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        sols_mb, valids_mb, stats = solve_exact_megabatch(
+            slv, targets_mb, seed=0, pos_error_threshold=1e-3, rot_error_threshold=0.01, return_stats=True,
+        )
+        mb_s = time.perf_counter() - t1
+        check(sols_mb.shape == (N_MEGABATCH, robot.ndof) and bool(np.isfinite(sols_mb).all()), "bad megabatch output")
+        check(kernel.launches == 2 * hp.nb_nodes * sum(t["chunks"] for t in stats) and other.launches == 0,
+              f"{phase} ran its kernel {kernel.launches} times, the other {other.launches} times for {stats}")
+        summary = check_solutions(robot, sols_mb, valids_mb, targets_mb, 0.99, 0.01)
+        emit(phase, t0, n=N_MEGABATCH, **summary, wall_s=mb_s, sols_per_s=N_MEGABATCH / mb_s, tiers=stats,
+             kernel_launches=kernel.launches, other_kernel_launches=other.launches)
+        return stats
+
+    stats = megabatch(solver, "megabatch", fused_mlp, fused_mlp_bf16)
+    stats_bf16 = megabatch(solver_bf16, "megabatch_bf16", fused_mlp_bf16, fused_mlp)
 
     # 11. diverse: 16 of 128 candidates for one pose, against the first 16 raw candidates.
     t0 = time.perf_counter()
@@ -592,21 +706,32 @@ def main():
          kernel_launches=fused_mlp.launches)
 
     # 12. K1 vs plain at the rows the megabatch's chunks (a chunk's poses times
-    # its tier's repeat count) and the diverse path gave it.
+    # its tier's repeat count) and the diverse path gave it; K1' vs its plain
+    # version at the rows the bf16 megabatch gave it.
     t0 = time.perf_counter()
     path_batches = sorted({size * t["repeat"] for t in stats for size in t["chunk_rows"]} | {n_div * oversample})
     rows_p, max_err_p, _ = kernel_rows(fused_mlp, fused_mlp_plain, subnet_bound, solver._kernel_params, path_batches,
                                        torch.Generator(device=dev).manual_seed(1), close_fp32)
+    path_batches_b = sorted({size * t["repeat"] for t in stats_bf16 for size in t["chunk_rows"]})
+    rows_pb, max_err_pb, _ = kernel_rows(fused_mlp_bf16, fused_mlp_bf16_plain, subnet_bound_bf16,
+                                         solver_bf16._kernel_params, path_batches_b,
+                                         torch.Generator(device=dev).manual_seed(2), close_bf16)
     emit("kernel_vs_plain_paths", t0, atol=KERNEL_ATOL, rtol=KERNEL_RTOL, tight=KERNEL_FP32_TIGHT,
-         tight_share=KERNEL_FP32_TIGHT_SHARE, batches=path_batches, rows=rows_p)
+         tight_share=KERNEL_FP32_TIGHT_SHARE, batches=path_batches, rows=rows_p, batches_bf16=path_batches_b,
+         bf16_tight=KERNEL_BF16_TIGHT, bf16_tight_share=KERNEL_BF16_TIGHT_SHARE, bf16_loose=KERNEL_BF16_LOOSE,
+         rows_bf16=rows_pb)
 
     print(json.dumps({"kernels": [
         kernel_entry("fused_mlp", "bf16_hidden=False: fp32 contract, hidden layers 3xTF32 on wgmma m64n128k8 "
                      "with packed tf32 hi/lo weight planes, 64-row tiles split over 8-CTA clusters, "
                      "a staging warpgroup, first/last layer fp32 FFMA",
                      "ikflow_tpu_torch/csrc/fused_mlp.cu", main_path_launches, max(max_err, max_err_p), headline),
-        kernel_entry("fused_mlp_bf16", "bf16_hidden=True: hidden x hidden layers bf16 on mma.sync, fp32 accumulate",
-                     "ikflow_tpu_torch/csrc/fused_mlp_bf16.cu", main_path_launches_bf16, max_err_b, headline_b),
+        kernel_entry("fused_mlp_bf16", "bf16_hidden=True: hidden layers bf16 on wgmma m64n128k16 with fp32 "
+                     "accumulation, 64-row tiles split over 8-CTA clusters, weights packed once and streamed by "
+                     "cp.async.bulk into a 4-slot mbarrier ring, activations pulled from the peers over DSMEM by a "
+                     "staging warpgroup, two CTAs per SM, first/last layer fp32 FFMA",
+                     "ikflow_tpu_torch/csrc/fused_mlp_bf16.cu", main_path_launches_bf16, max(max_err_b, max_err_pb),
+                     headline_b),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"total_seconds": round(time.perf_counter() - t_all, 3)}), flush=True)

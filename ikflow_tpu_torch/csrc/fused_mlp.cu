@@ -83,37 +83,25 @@
 // the first hidden layer); B planes 3 buffers x (hi, lo) x 16 KB = 98,304 B
 // (also the first and last layer's weight slices); partials 64 x 16 x 4 =
 // 4,096 B: 202,752 B, one CTA per SM.
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "cluster_mlp.cuh"
 
 namespace {
 
 constexpr int kMathThreads = 128;  // warpgroup 0: wgmma over the CTA's 128 columns
 constexpr int kLoadThreads = 128;  // warpgroup 1: stages the operands
-constexpr int kThreads = kMathThreads + kLoadThreads;
-constexpr int kTileRows = 64;  // rows per cluster = the wgmma M
-constexpr int kSlice = 128;    // hidden-layer output columns per CTA
 constexpr int kChunk = 32;     // k per pipeline step: 4 wgmma k-steps of 8
 constexpr int kABufs = 2;      // A planes: chunk j in use, chunk j + 1 being written
 constexpr int kBBufs = 3;      // B planes: chunk j in use, j + 1 and j + 2 in flight
 constexpr int kAAhead = 4;     // chunks of activations in flight from the peers, in registers
-constexpr int kMaxLayers = 5;
-constexpr int kInChunk = 64;  // k per staged chunk of the first layer
-constexpr int kMaxOut = 16;
-constexpr int kMaxCluster = 8;  // portable cluster size: widths up to 1024
-constexpr int kActStride = kSlice + 4;
-constexpr float kLeakySlope = 0.01f;
 
-// wgmma operand planes, K-major. B planes, unswizzled: an 8-row x 4-word
-// (16 B) core matrix is 128 contiguous bytes; the kChunk / 4 core matrices
-// of an 8-row group follow each other (LBO = 128 B between K neighbours) and
-// the groups follow each other (SBO = kChunk / 4 * 128 B). A hidden weight
-// comes packed in exactly this form (flow/fused_subnet.py::
-// pack_tf32x3_weight): for each CTA slice and chunk, its hi plane then its lo
-// plane, 32 KB together. A planes: 128-byte swizzle, see desc_a.
-constexpr int kLBO = 128;
-constexpr int kSBO = kChunk / 4 * 128;
+// wgmma operand planes, K-major. B planes, unswizzled core matrices
+// (cluster_mlp.cuh: desc_b), kChunk / 4 = 8 of them along K per 8-row
+// group. A hidden weight comes packed in exactly this form
+// (flow/fused_subnet.py::pack_tf32x3_weight): for each CTA slice and chunk,
+// its hi plane then its lo plane, 32 KB together. A planes: 128-byte
+// swizzle, see desc_a.
+static_assert(kMathThreads + kLoadThreads == kThreads, "two warpgroups");
+static_assert(kSBO == kChunk / 4 * 128, "a B plane's 8-row group is kChunk / 4 core matrices deep");
 constexpr int kAPlaneWords = kTileRows * kChunk;  // one of hi, lo: 8 KB
 constexpr int kBPlaneWords = kSlice * kChunk;     // 16 KB
 
@@ -144,14 +132,6 @@ struct MlpArgs {
   int out_dim;
 };
 
-__device__ __forceinline__ float4 zero4() { return make_float4(0.f, 0.f, 0.f, 0.f); }
-
-__device__ __forceinline__ float leaky(float v) { return v > 0.f ? v : kLeakySlope * v; }
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
 }
@@ -163,39 +143,6 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-// Every thread of every CTA in the cluster: writes before it (shared memory
-// included) are visible to reads after it, in every CTA of the cluster.
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// The shared::cluster address of the same offset in CTA `rank`'s shared memory.
-__device__ __forceinline__ uint32_t peer_addr(uint32_t addr, uint32_t rank) {
-  uint32_t out;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
-  return out;
-}
-
-__device__ __forceinline__ float4 ld_peer4(uint32_t addr) {
-  float4 v;
-  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-               : "r"(addr));
-  return v;
-}
-
-__device__ __forceinline__ float ld_peer(uint32_t addr) {
-  float v;
-  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr));
-  return v;
-}
-
 // cvt.rna.tf32.f32 for finite v, on the bit pattern: add half of the 13
 // dropped bits to the magnitude and truncate (round to nearest, ties away
 // from zero). Two integer operations.
@@ -205,35 +152,6 @@ __device__ __forceinline__ uint32_t rna_tf32(float v) { return (__float_as_uint(
 __device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
   hi = rna_tf32(v);
   lo = rna_tf32(v - __uint_as_float(hi));
-}
-
-// Shared-memory matrix descriptors, K-major. B: unswizzled core matrices
-// (LBO 128 B between K neighbours, SBO between 8-row groups). A: 128-byte
-// swizzle, rows of kChunk = 32 words, 8-row atoms of 1024 B (SBO); a k-step
-// advances the start address by 32 B inside the atom.
-__device__ __forceinline__ uint64_t desc_b(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(kLBO >> 4) << 16) |
-         (static_cast<uint64_t>(kSBO >> 4) << 32);
-}
-
-__device__ __forceinline__ uint64_t desc_a(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
-
-// Generic-proxy writes to shared memory (plain stores) made visible to the
-// async proxy that wgmma reads through.
-__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
-
-// Keep the compiler from moving accesses of the accumulators across the
-// asynchronous wgmma that own them.
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d (64 x 128, fp32) = A (64 x 8 tf32, K-major in shared memory) * B (8 x 128,
@@ -260,19 +178,6 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t desc_a, uint
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
-}
-
-// Byte offset of (row, 4 c4) in an A plane: 128-byte rows in 8-row atoms,
-// the 16-byte chunk c4 stored at c4 ^ (row % 8).
-__device__ __forceinline__ int a_offset(int row, int c4) {
-  return (row >> 3) * 1024 + (row & 7) * 128 + ((c4 ^ (row & 7)) << 4);
-}
-
-__device__ __forceinline__ void fma4(float* acc, float h, const float4& w) {
-  acc[0] = fmaf(h, w.x, acc[0]);
-  acc[1] = fmaf(h, w.y, acc[1]);
-  acc[2] = fmaf(h, w.z, acc[2]);
-  acc[3] = fmaf(h, w.w, acc[3]);
 }
 
 // Layer 0: h_out[r][c] = leaky(sum_k x[row0 + r][k] W[k][col0 + c] + b[col0 + c])
@@ -493,22 +398,6 @@ __device__ void output_partial(const float* h, const float* Ws, int N, float* pa
   }
 }
 
-// out[row0 + r][n] = sum over the cluster's CTAs, in rank order, of their
-// partials, plus b[n], for this CTA's rows r % cluster == rank.
-__device__ void output_reduce(const float* partial, int cluster, int rank, const float* __restrict__ bias, int N,
-                              float* __restrict__ out, int row0, int B) {
-  const uint32_t base = smem_addr(partial);
-  for (int e = threadIdx.x; e < kTileRows * N; e += kThreads) {
-    const int r = e / N, n = e - r * N;
-    if (r % cluster != rank || row0 + r >= B) continue;
-    float s = 0.f;
-    for (int c = 0; c < cluster; ++c) {
-      s += ld_peer(peer_addr(base + (r * kMaxOut + n) * static_cast<int>(sizeof(float)), static_cast<uint32_t>(c)));
-    }
-    out[static_cast<size_t>(row0 + r) * N + n] = s + __ldg(bias + n);
-  }
-}
-
 __global__ void __launch_bounds__(kThreads, 1) fused_mlp_kernel(const float* __restrict__ x,
                                                                 float* __restrict__ out, int B, MlpArgs a) {
   extern __shared__ float4 smem4[];
@@ -552,29 +441,6 @@ __global__ void __launch_bounds__(kThreads, 1) fused_mlp_kernel(const float* __r
   cluster_sync();  // no CTA leaves while a peer reads its partials
 }
 
-bool valid_shape(int in_dim, int width, int out_dim, int n_layers) {
-  return n_layers >= 2 && n_layers <= kMaxLayers && out_dim >= 1 && out_dim <= kMaxOut && width % 4 == 0 &&
-         width >= 4 && width <= kMaxCluster * kSlice && in_dim >= 1 && in_dim <= width;
-}
-
-int slices_of(int width) { return (width + kSlice - 1) / kSlice; }
-
-cudaLaunchConfig_t launch_config(int B, int width, cudaStream_t stream, cudaLaunchAttribute* attr) {
-  const int cluster = slices_of(width);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>((B + kTileRows - 1) / kTileRows * cluster));
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = kSmemBytes;
-  cfg.stream = stream;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = static_cast<unsigned>(cluster);
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
 }  // namespace
 
 extern "C" {
@@ -588,7 +454,7 @@ int ikflow_fused_mlp_max_active_clusters(int width, int* n) {
   cudaError_t err = cudaFuncSetAttribute(fused_mlp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = launch_config(kTileRows * 1024, width, nullptr, &attr);
+  const cudaLaunchConfig_t cfg = launch_config(kTileRows * 1024, width, kSmemBytes, nullptr, &attr);
   return static_cast<int>(cudaOccupancyMaxActiveClusters(n, (const void*)fused_mlp_kernel, &cfg));
 }
 
@@ -615,7 +481,7 @@ int ikflow_fused_mlp(const float* x, float* out, int B, int in_dim, int width, i
   cudaError_t err = cudaFuncSetAttribute(fused_mlp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = launch_config(B, width, static_cast<cudaStream_t>(stream), &attr);
+  const cudaLaunchConfig_t cfg = launch_config(B, width, kSmemBytes, static_cast<cudaStream_t>(stream), &attr);
   err = cudaLaunchKernelEx(&cfg, fused_mlp_kernel, x, out, B, a);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

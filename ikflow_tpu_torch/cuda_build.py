@@ -2,7 +2,8 @@
 plain C interface, and loads them with ctypes.
 
 Each ``csrc/<name>.cu`` becomes ``build/lib<name>.so`` at the checkout root,
-built on first use (or when the source is newer), for ``sm_90a``. Nothing is
+built on first use (or when the source or a ``csrc/*.cuh`` header it may
+include is newer), for ``sm_90a``. Nothing is
 built when a module is imported.
 """
 
@@ -10,6 +11,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import glob
 import os
 import shutil
 import subprocess
@@ -64,12 +66,13 @@ def build(name: str) -> BuildResult:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built first if missing or stale."""
+    """The loaded library for ``csrc/<name>.cu``, built first if missing or
+    older than the source or any header under ``csrc/``."""
     lib = _LIBS.get(name)
     if lib is None:
         path = library_path(name)
-        src = os.path.join(CSRC_DIR, f"{name}.cu")
-        if not os.path.exists(path) or os.path.getmtime(path) < os.path.getmtime(src):
+        sources = [os.path.join(CSRC_DIR, f"{name}.cu")] + glob.glob(os.path.join(CSRC_DIR, "*.cuh"))
+        if not os.path.exists(path) or os.path.getmtime(path) < max(map(os.path.getmtime, sources)):
             build(name)
         lib = _LIBS[name] = ctypes.CDLL(path)
     return lib

@@ -17,9 +17,12 @@ all but the last, for a (B, in) fp32 input.
   multiple of 128 columns. One launch shape serves every B; see the source.
 - K1', ``fused_mlp_bf16`` (``csrc/fused_mlp_bf16.cu``): the layers
   ``0 < i < n-1`` take bf16 inputs and bf16 weights with fp32 accumulation,
-  on the tensor cores; the first and last layer, biases and activations stay
-  fp32. Its hidden weights are converted to bf16 once per parameter set, in
-  the tensor-core fragment order (``prepare_bf16_subnet``).
+  on wgmma; the first and last layer, biases and activations stay fp32. The
+  same cluster split as K1; its hidden weights are converted to bf16 once per
+  parameter set and packed into the order wgmma reads them, zero-padded to a
+  multiple of 128 columns, so that each (CTA slice, 64-row chunk) is one
+  contiguous block that the kernel streams by bulk async copy
+  (``prepare_bf16_subnet``). It takes the shapes K1 takes.
 
 Both kernels are built by nvcc into C-ABI libraries and called through ctypes
 on PyTorch's current stream. A wrapper takes its plain version only for
@@ -39,10 +42,12 @@ from ikflow_tpu_torch import cuda_build
 LEAKY_SLOPE = 0.01
 MAX_LAYERS = 5  # must match csrc/fused_mlp.cu and csrc/fused_mlp_bf16.cu
 MAX_OUT = 16
-MAX_WIDTH = 1024  # K1: a cluster of at most 8 CTAs of 128 columns; K1': shared memory
-MAX_IN_BF16 = 64  # must match csrc/fused_mlp_bf16.cu: the input tile lives in shared memory
-K1_SLICE_COLS = 128  # K1's packed layout: must match kSlice and kChunk in csrc/fused_mlp.cu
+MAX_WIDTH = 1024  # a cluster of at most 8 CTAs of 128 columns
+# The packed layouts: SLICE_COLS must match kSlice in csrc/cluster_mlp.cuh,
+# K1_CHUNK kChunk in csrc/fused_mlp.cu, K1B_CHUNK kChunk in csrc/fused_mlp_bf16.cu.
+SLICE_COLS = 128
 K1_CHUNK = 32
+K1B_CHUNK = 64
 
 _BOUND: Dict[str, ctypes.CDLL] = {}
 
@@ -119,16 +124,18 @@ def fused_mlp_bf16_plain(x: torch.Tensor, layers: Sequence[Dict[str, torch.Tenso
 
 
 def pack_bf16_weight(w: torch.Tensor) -> torch.Tensor:
-    """A hidden weight (K, N) fp32 as bf16 (round to nearest even), flat, in
-    the order K1' reads its mma.m16n8k16 B fragments: for each n-tile of 8
-    columns and k-step of 16 rows, the 32 lanes' fragments in lane order, a
-    lane (g = lane // 4, t = lane % 4) holding column g and rows
-    2t, 2t+1, 8+2t, 9+2t of the step. K % 16 == 0 and N % 8 == 0."""
+    """A hidden weight (K, N) fp32, zero-padded to (K', N'), the next
+    multiples of 128, rounded to bf16 (to nearest even) and laid out as K1'
+    streams it into shared memory, flat: for each 128-column CTA slice c and
+    64-row chunk j, one 16 KB block in wgmma's K-major core-matrix order
+    [n // 8][k // 8][n % 8][k % 8] (column n = 128 c + n, row k = 64 j + k).
+    The padding is exact: a padded column's activation is LeakyReLU(0) = 0,
+    and a padded row meets it with zeros."""
     K, N = w.shape
-    if K % 16 or N % 8:
-        raise ValueError(f"bf16 weights need K % 16 == 0 and N % 8 == 0, got {tuple(w.shape)}")
-    wb = w.to(torch.bfloat16).reshape(K // 16, 2, 4, 2, N // 8, 8)  # [kt, half, t, e, nt, g]
-    return wb.permute(4, 0, 5, 2, 1, 3).contiguous().reshape(-1)  # [nt, kt, g, t, half, e]
+    Kp, Np = _padded(K), _padded(N)
+    wb = F.pad(w, (0, Np - N, 0, Kp - K)).to(torch.bfloat16)
+    wb = wb.reshape(Kp // K1B_CHUNK, 8, 8, Np // SLICE_COLS, 16, 8)  # [j, kb, k8, c, nb, n8]
+    return wb.permute(3, 0, 4, 1, 5, 2).contiguous().reshape(-1)  # [c, j, nb, kb, n8, k8]
 
 
 def split_tf32(x: torch.Tensor):
@@ -143,8 +150,8 @@ def split_tf32(x: torch.Tensor):
     return hi, rna(x - hi)
 
 
-def _k1_padded(n: int) -> int:
-    return -(-n // K1_SLICE_COLS) * K1_SLICE_COLS
+def _padded(n: int) -> int:
+    return -(-n // SLICE_COLS) * SLICE_COLS
 
 
 def pack_tf32x3_weight(w: torch.Tensor) -> torch.Tensor:
@@ -156,14 +163,18 @@ def pack_tf32x3_weight(w: torch.Tensor) -> torch.Tensor:
     row k = 32 j + k). The padding is exact: a padded column's activation is
     LeakyReLU(0) = 0, and a padded row meets it with zeros."""
     K, N = w.shape
-    Kp, Np = _k1_padded(K), _k1_padded(N)
+    Kp, Np = _padded(K), _padded(N)
     planes = torch.stack(split_tf32(F.pad(w, (0, Np - N, 0, Kp - K))))
-    planes = planes.reshape(2, Kp // K1_CHUNK, 8, 4, Np // K1_SLICE_COLS, 16, 8)  # [p, j, kb, k4, c, nb, n8]
+    planes = planes.reshape(2, Kp // K1_CHUNK, 8, 4, Np // SLICE_COLS, 16, 8)  # [p, j, kb, k4, c, nb, n8]
     return planes.permute(4, 1, 0, 5, 2, 6, 3).contiguous().reshape(-1)  # [c, j, p, nb, kb, n8, k4]
 
 
 def _tf32x3_numel(w: torch.Tensor) -> int:
-    return 2 * _k1_padded(w.shape[0]) * _k1_padded(w.shape[1])
+    return 2 * _padded(w.shape[0]) * _padded(w.shape[1])
+
+
+def _bf16_numel(w: torch.Tensor) -> int:
+    return _padded(w.shape[0]) * _padded(w.shape[1])
 
 
 def prepare_tf32x3_subnet(layers: Sequence[Dict[str, torch.Tensor]]):
@@ -183,19 +194,18 @@ def prepare_bf16_subnet(layers: Sequence[Dict[str, torch.Tensor]]):
             for i, layer in enumerate(layers)]
 
 
-def _check(x: torch.Tensor, layers: Sequence[Dict[str, torch.Tensor]], width_multiple: int = 4,
-           max_in: int = MAX_WIDTH) -> None:
-    """Raise on what the kernels do not take; the defaults are K1's limits."""
+def _check(x: torch.Tensor, layers: Sequence[Dict[str, torch.Tensor]]) -> None:
+    """Raise on what the kernels do not take."""
     if not 2 <= len(layers) <= MAX_LAYERS:
         raise ValueError(f"fused_mlp takes 2..{MAX_LAYERS} layers, got {len(layers)}")
     if x.ndim != 2:
         raise ValueError(f"x must be (B, in), got shape {tuple(x.shape)}")
     width = layers[0]["w"].shape[1]
-    if width % width_multiple or not 0 < width <= MAX_WIDTH:
-        raise ValueError(f"hidden width must be a multiple of {width_multiple} and <= {MAX_WIDTH}, got {width}")
+    if width % 4 or not 0 < width <= MAX_WIDTH:
+        raise ValueError(f"hidden width must be a multiple of 4 and <= {MAX_WIDTH}, got {width}")
     k = x.shape[1]
-    if k > min(width, max_in):
-        raise ValueError(f"input width {k} exceeds {min(width, max_in)}")
+    if k > width:
+        raise ValueError(f"input width {k} exceeds the hidden width {width}")
     for i, layer in enumerate(layers):
         w, b = layer["w"], layer["b"]
         n = w.shape[1]
@@ -256,15 +266,15 @@ fused_mlp.launches = 0  # kernel launches; the plain CPU path does not count
 
 
 def _check_bf16(x: torch.Tensor, layers: Sequence[Dict[str, torch.Tensor]]) -> None:
-    _check(x, layers, width_multiple=16, max_in=MAX_IN_BF16)
-    _check_packed(x, layers, torch.bfloat16, torch.Tensor.numel, "prepare_bf16_subnet")
+    _check(x, layers)
+    _check_packed(x, layers, torch.bfloat16, _bf16_numel, "prepare_bf16_subnet")
 
 
 def fused_mlp_bf16(x: torch.Tensor, layers: Sequence[Dict[str, torch.Tensor]]) -> torch.Tensor:
     """Subnet MLP with bf16 hidden layers: x (B, in) -> (B, out). ``layers``
     as for ``fused_mlp``, from ``prepare_bf16_subnet`` (hidden layers carry
-    their packed bf16 weight ``"wp"``); hidden width a multiple of 16,
-    in <= 64, last N <= 16."""
+    their packed bf16 weight ``"wp"``); hidden width a multiple of 4 up to
+    1024, in <= width, last N <= 16."""
     if x.device.type == "cpu":
         return fused_mlp_bf16_plain(x, layers)
     if x.device.type != "cuda":

@@ -56,25 +56,6 @@ def test_bf16_plain_subnet_matches_jax(depth):
         assert np.median(np.abs(out - fp32)) > 2 * TIGHT
 
 
-@pytest.mark.parametrize("shape", [(16, 8), (64, 128), (1024, 1024)])
-def test_pack_bf16_weight_follows_the_mma_fragment_layout(shape):
-    """mma.m16n8k16's B fragment (PTX ISA): lane = 4 g + t holds, for n-tile
-    nt and k-step kt, b0 b1 = B[16 kt + 2t + {0, 1}][8 nt + g] and b2 b3 the
-    same 8 rows further; the packed order is (nt, kt, lane, b0..b3)."""
-    K, N = shape
-    w = torch.from_numpy(np.random.default_rng(K).normal(size=shape).astype(np.float32))
-    packed = pack_bf16_weight(w).reshape(N // 8, K // 16, 32, 4)
-    wb = w.to(torch.bfloat16)
-    nt, kt, lane, i = np.meshgrid(np.arange(N // 8), np.arange(K // 16), np.arange(32), np.arange(4), indexing="ij")
-    g, t = lane // 4, lane % 4
-    k = 16 * kt + 2 * t + (i % 2) + 8 * (i // 2)
-    n = 8 * nt + g
-    assert packed.dtype == torch.bfloat16 and packed.is_contiguous()
-    assert torch.equal(packed, wb[torch.from_numpy(k), torch.from_numpy(n)])
-    with pytest.raises(ValueError):
-        pack_bf16_weight(torch.zeros(24, 8))
-
-
 def test_prepare_bf16_subnet_packs_hidden_layers_only():
     layers = _torch_layers(_np_subnet(np.random.default_rng(0), (10, 64, 64, 64, 8)))
     prepared = prepare_bf16_subnet(layers)
@@ -100,17 +81,16 @@ def _bad_bf16_inputs():
     good = prepare_bf16_subnet(_torch_layers(_np_subnet(rng, (10, 64, 64, 8))))
     x = torch.zeros(4, 10)
     unpacked = _torch_layers(_np_subnet(rng, (10, 64, 64, 8)))
-    width_40 = _torch_layers(_np_subnet(rng, (10, 40, 40, 8)))
-    width_40[1]["wp"] = torch.zeros(40 * 40, dtype=torch.bfloat16)
-    wide_in = prepare_bf16_subnet(_torch_layers(_np_subnet(rng, (65, 128, 128, 8))))
+    width_66 = prepare_bf16_subnet(_torch_layers(_np_subnet(rng, (10, 66, 66, 8))))
+    wide_in = prepare_bf16_subnet(_torch_layers(_np_subnet(rng, (130, 128, 128, 8))))
     fp32_packed = [dict(layer) for layer in good]
     fp32_packed[1]["wp"] = fp32_packed[1]["wp"].float()
     short_packed = [dict(layer) for layer in good]
     short_packed[1]["wp"] = short_packed[1]["wp"][:-8]
     return {
         "no_packed_weight": (x, unpacked),
-        "width_not_multiple_of_16": (x, width_40),
-        "input_over_64": (torch.zeros(4, 65), wide_in),
+        "width_not_multiple_of_4": (x, width_66),
+        "input_over_width": (torch.zeros(4, 130), wide_in),
         "packed_not_bf16": (x, fp32_packed),
         "packed_wrong_size": (x, short_packed),
         "x_fp64": (x.double(), good),
@@ -123,6 +103,15 @@ def test_bf16_kernel_input_checks_raise(case):
     x, layers = _bad_bf16_inputs()[case]
     with pytest.raises((ValueError, TypeError)):
         fused_subnet._check_bf16(x, layers)
+
+
+@pytest.mark.parametrize("dims", [(10, 40, 40, 8), (65, 128, 128, 8), (100, 200, 200, 200, 16), (20, 36, 5)])
+def test_bf16_kernel_input_checks_pass_what_it_takes(dims):
+    """K1' takes what K1 takes: any hidden width that is a multiple of 4 up to
+    1024 (its packed weights zero-padded to multiples of 128) and inputs up to
+    the hidden width."""
+    layers = prepare_bf16_subnet(_torch_layers(_np_subnet(np.random.default_rng(2), dims)))
+    fused_subnet._check_bf16(torch.zeros(4, dims[0]), layers)
 
 
 def _bf16_flow_pair(sigmoid, clamp, seed):

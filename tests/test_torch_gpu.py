@@ -140,10 +140,15 @@ def assert_bf16_close(out, ref):
     assert float((err <= BF16_TIGHT).float().mean()) >= BF16_TIGHT_SHARE
 
 
-@pytest.mark.parametrize("B", [1, 31, 32, 33, 1000, 10000])
+# Ragged row counts around K1''s 64-row tiles, and the serving path's; the
+# shapes it had, widths that are multiples of 128 (cluster sizes 1-8) and
+# widths it zero-pads, with an input of 100.
+@pytest.mark.parametrize("B", [1, 63, 64, 65, 127, 128, 129, 1000, 3000, 10000])
 @pytest.mark.parametrize("dims", [
     (10, 1024, 1024, 1024, 8), (11, 1024, 1024, 1024, 6), (13, 256, 256, 10), (12, 64, 5),
-    (16, 128, 128, 128, 128, 16), (20, 48, 48, 48, 4), (64, 1024, 1024, 3),
+    (16, 128, 128, 128, 128, 16), (20, 48, 48, 48, 4), (64, 1024, 1024, 3), (10, 384, 384, 384, 8),
+    (10, 512, 512, 8), (12, 640, 640, 640, 8), (10, 768, 768, 8), (10, 896, 896, 896, 8), (10, 320, 320, 8),
+    (11, 1000, 1000, 1000, 6), (100, 200, 200, 16), (20, 36, 36, 5),
 ])
 def test_bf16_kernel_matches_plain(cuda, B, dims):
     layers = prepare_bf16_subnet(_subnet(dims, cuda, seed=B + len(dims)))
@@ -171,10 +176,10 @@ def test_bf16_kernel_refuses_what_it_does_not_take(cuda):
         fused_mlp_bf16(x, _subnet((10, 64, 64, 8), cuda, seed=0))
     with pytest.raises(ValueError):  # packed weights on the host
         fused_mlp_bf16(x, [dict(lay, wp=lay["wp"].cpu()) if "wp" in lay else lay for lay in layers])
-    with pytest.raises(ValueError):  # width 40 is no multiple of 16
-        fused_mlp_bf16(x, _subnet((10, 40, 8), cuda, seed=0))
-    with pytest.raises(ValueError):  # input wider than 64
-        fused_mlp_bf16(torch.zeros((4, 65), device=cuda), prepare_bf16_subnet(_subnet((65, 128, 128, 8), cuda, 0)))
+    with pytest.raises(ValueError):  # width 66 is no multiple of 4
+        fused_mlp_bf16(x, prepare_bf16_subnet(_subnet((10, 66, 66, 8), cuda, seed=0)))
+    with pytest.raises(ValueError):  # input wider than the hidden width
+        fused_mlp_bf16(torch.zeros((4, 130), device=cuda), prepare_bf16_subnet(_subnet((130, 128, 128, 8), cuda, 0)))
 
 
 def test_bf16_flow_inverse_runs_the_bf16_kernel(cuda):

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ikflow_tpu_torch/ and not chip_smoke.py
-imports jax or the JAX package (checked on the source, by AST walk)."""
+"""The port stands alone: no module of ikflow_tpu_torch/, not chip_smoke.py and
+not bf16_flow_draws.py imports jax or the JAX package (checked on the source,
+by AST walk)."""
 
 import ast
 import pathlib
@@ -7,7 +8,7 @@ import pathlib
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "ikflow_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "ikflow_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "bf16_flow_draws.py"]
 FORBIDDEN = {"jax", "jaxlib", "ikflow_tpu"}
 
 
