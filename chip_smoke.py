@@ -1,7 +1,8 @@
-import faulthandler; faulthandler.dump_traceback_later(300, exit=True)  # noqa: E702  watchdog: a hang exits 1 with a traceback
+import faulthandler; faulthandler.dump_traceback_later(600, exit=True)  # noqa: E702  watchdog: a hang exits 1 with a traceback
 
 # Smoke run of the PyTorch port on one NVIDIA GPU: build the CUDA kernels,
-# hold each against its plain version, and drive the serving paths end to end.
+# hold each against its plain version, and drive the serving and training
+# paths end to end.
 #
 #     python3 chip_smoke.py
 #
@@ -34,14 +35,34 @@ import faulthandler; faulthandler.dump_traceback_later(300, exit=True)  # noqa: 
 #    forward kinematics;
 # 7. profile: device time by kernel over a second, traced exact solve;
 # 8. flow_vs_cpu: the card's flow against the plain flow on the CPU, 64 rows;
-# 9. approx_bf16, exact_bf16, profile_bf16, flow_vs_cpu_bf16: the same through
-#    a solver built with ``hp.bf16_hidden = True`` on the same weights (K1');
+# 9. approx_bf16, exact_bf16, profile_bf16: the same through a solver built
+#    with ``hp.bf16_hidden = True`` on the same weights (K1'); flow_vs_cpu_bf16
+#    holds K1''s flow to the card's plain bf16 flow over 48 draws of 64 rows,
+#    both against the CPU (the draws over 2e-2 and the median per-draw max);
 # 10. megabatch, megabatch_bf16: 100000 reachable poses through
 #     ``solve_exact_megabatch``, on the fp32 and on the bf16 solver;
 # 11. diverse: ``generate_diverse_ik_solutions`` for one pose;
 # 12. kernel_vs_plain_paths: K1 against addmm + leaky_relu at the row counts
 #     the megabatch and diverse paths gave it, and K1' against its plain
-#     version at the row counts the bf16 megabatch gave it.
+#     version at the row counts the bf16 megabatch gave it;
+# 13. dataset: ``build_dataset_resident`` with 2.5M train rows on the card,
+#     every row inside the margined limits and free of self-collision, the
+#     poses of 100000 rows against the card's FK and the float64 FK;
+# 14. train_fresh: ``Trainer.fit_on_device`` of panda__full__sigmoid's
+#     architecture at full width from ``flow.init`` (300 adamw steps of 512,
+#     validated through K1), ms per step, steps/s, peak memory and a
+#     torch.profiler split of one 100-step window; then 100 steps with
+#     ``bf16_hidden`` (validated through K1');
+# 15. train_warm: the ``train`` command in-process from the shipped weights
+#     (200 steps at lr 1e-6, exported in fp16 through the registry's 13.0 mm
+#     gate), the export graded against the shipped weights on the same poses
+#     and latents, then served by ``get_ik_solver`` and solved exactly through
+#     K1 on the 1000 poses of phase 6;
+# 16. kernel_vs_plain_training: K1 and K1' against their plain versions at
+#     the 12800 rows each validation gave them.
+#
+# Phases 13-15 write every file (cache, datasets, run directory, checkpoints,
+# the export) under a temporary directory that is removed at the end.
 #
 # A kernel's ``ms`` (and ``plain_ms``, ``k1_ms``, ``cold_l2_ms``) is time per
 # call with the calls launched one by one from Python between CUDA events, as
@@ -62,6 +83,7 @@ import os  # noqa: E402
 import re  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
+import tempfile  # noqa: E402
 import time  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -94,11 +116,21 @@ KERNEL_BF16_TIGHT_SHARE = 0.9
 KERNEL_BF16_LOOSE = 1e-2
 # The bf16 flow on the card vs the plain bf16 flow on the CPU, radians: such
 # flips, in 2 x 1024 activations of each of 24 subnets, compound through the
-# couplings' exp. Measured on 64 rows: max 1.04e-2, mean 4.4e-4. The fp32 flow
-# differs from the card's bf16 flow by max 8.5e-2, mean 2.5e-3, so both bounds
-# sit between the two readings.
+# couplings' exp, so one draw's largest gap is not a property of the kernel
+# (over 48 draws of 64 rows K1' passed 2e-2 on 39, the card's plain bf16 flow
+# on 42, the earlier mma.sync K1' on 21). The bar holds K1''s flow to the
+# card's plain bf16 flow over FLOW_BF16_DRAWS draws, both against the CPU:
+# draws over FLOW_BF16_ATOL at most the plain flow's count plus
+# FLOW_BF16_DRAW_MARGIN, and the median per-draw max within
+# FLOW_BF16_MEDIAN_FACTOR of the plain flow's (measured: 9 / 6 draws, medians
+# 5.8e-3 / 5.1e-3; the mma.sync K1' read 27 draws, median 2.5e-2, and fails
+# both). The first draw's max and mean are printed beside it, against the
+# one-draw bounds the bar replaces.
 FLOW_BF16_ATOL = 2e-2
 FLOW_BF16_MEAN_ATOL = 1e-3
+FLOW_BF16_DRAWS = 48
+FLOW_BF16_DRAW_MARGIN = 6
+FLOW_BF16_MEDIAN_FACTOR = 2.0
 N_MEGABATCH = 100000
 FK_SLACK_POS = 1e-5  # float64 recheck of fp32 solutions: metres
 FK_SLACK_ROT = 1e-4  # radians
@@ -110,6 +142,18 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 N_COLLISION = 100000
 COLLISION_MAX_FLIPS = 10  # fp32 FK on the card and the CPU round differently near a contact
+# Training. The dataset is ``train --dataset_size``'s default, cut from
+# ``build_dataset_resident``'s 25M default; 15000 test rows, its default.
+N_DATASET = 2_500_000
+N_DATASET_TEST = 15_000
+N_FK_CHECK = 100_000
+FK_DATASET_POS = 1e-5  # metres: stored poses vs the float64 FK of their rows
+FK_DATASET_ROT = 1e-4  # radians
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_WINDOW = 300, 512, 100
+TRAIN_BF16_STEPS, TRAIN_BF16_WINDOW = 100, 50
+WARM_STEPS = 200
+WARM_VAL_RATIO = 0.10  # the exported weights' val l2 error within 10% of the shipped weights'
+MATMUL_KERNEL = re.compile(r"gemm|cutlass|xmma|matmul|fused_mlp", re.IGNORECASE)
 
 
 def emit(phase, t0, **fields):
@@ -273,6 +317,22 @@ def check_solutions(robot, sols, valids, targets, min_fraction, rot_tol):
             "fk64_max_pos_err_mm": 1e3 * float(pos64.max()), "fk64_max_rot_err_deg": float(np.degrees(rot64.max()))}
 
 
+def device_kernels(prof):
+    """{kernel name: (device ms, launches)} of a finished torch.profiler run,
+    summed over the raw trace's events: building the profiler's Python
+    events (``events()``, ``key_averages()``) takes minutes over the ~160000
+    kernels of a training window. User annotations on the device's timeline
+    are not kernels and are left out."""
+    kernels = {}
+    for evt in prof.profiler.kineto_results.events():
+        if evt.device_type() != torch.autograd.DeviceType.CUDA or evt.is_user_annotation():
+            continue
+        name = evt.name()
+        ms, count = kernels.get(name, (0.0, 0))
+        kernels[name] = (ms + evt.duration_ns() / 1e6, count + 1)
+    return kernels
+
+
 def profile_exact(solver, targets, g):
     """Device time by kernel over one exact solve, from torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
@@ -284,13 +344,7 @@ def profile_exact(solver, targets, g):
         solver.generate_exact_ik_solutions(targets, **kw)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    kernels = {}
-    for evt in prof.key_averages():
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = getattr(evt, "self_cuda_time_total", 0.0)
-        if us > 0 and getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA:
-            kernels[evt.key] = (us / 1e3, evt.count)
+    kernels = device_kernels(prof)
     if not kernels:
         return {"wall_ms": wall_ms, "device_ms": "not measured"}
     device_ms = sum(ms for ms, _ in kernels.values())
@@ -304,6 +358,118 @@ def profile_exact(solver, targets, g):
         "fused_mlp_bf16_ms": k1b_ms, "fused_mlp_bf16_share_of_device": k1b_ms / device_ms,
         "top": [{"kernel": k[:80], "ms": ms, "count": c} for k, (ms, c) in top],
     }
+
+
+def profile_split(fn, unprofiled_ms):
+    """Device time of ``fn`` by kind from torch.profiler (device activity
+    only, which keeps the trace small): matmul kernels (names matching
+    MATMUL_KERNEL), the rest, and the idle share, of the profiled wall time
+    and of ``unprofiled_ms``, the same work's time without the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = device_kernels(prof)
+    if not kernels:
+        return {"wall_ms": wall_ms, "device_ms": "not measured"}
+    device_ms = sum(ms for ms, _ in kernels.values())
+    matmul_ms = sum(ms for k, (ms, _) in kernels.items() if MATMUL_KERNEL.search(k))
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
+    return {"wall_ms": wall_ms, "unprofiled_ms": unprofiled_ms, "device_ms": device_ms, "matmul_ms": matmul_ms,
+            "other_ms": device_ms - matmul_ms, "idle_share": 1.0 - device_ms / wall_ms,
+            "idle_share_unprofiled": 1.0 - device_ms / unprofiled_ms,
+            "matmul_share_unprofiled": matmul_ms / unprofiled_ms,
+            "other_share_unprofiled": (device_ms - matmul_ms) / unprofiled_ms,
+            "kernel_launches": sum(c for _, c in kernels.values()),
+            "top": [{"kernel": k[:80], "ms": ms, "count": c} for k, (ms, c) in top]}
+
+
+def phase_dataset(robot, dev):
+    """``build_dataset_resident`` at N_DATASET rows on the card: every train
+    row inside the margined limits and free of self-collision, the poses of
+    N_FK_CHECK rows equal to the card's FK and to the float64 FK."""
+    from ikflow_tpu_torch.training.dataset import DEFAULT_JOINT_LIMIT_EPS, build_dataset_resident
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    ds = build_dataset_resident(robot, training_set_size=N_DATASET, test_set_size=N_DATASET_TEST,
+                                only_non_self_colliding=True, seed=0, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    q, poses = ds.samples_tr, ds.endpoints_tr
+    check(q.is_cuda and poses.is_cuda and tuple(q.shape) == (N_DATASET, robot.ndof) and tuple(poses.shape) ==
+          (N_DATASET, 7), "the train split is not resident on the card at its size")
+    check(ds.samples_te.shape == (N_DATASET_TEST, robot.ndof), "wrong test split")
+    eps = DEFAULT_JOINT_LIMIT_EPS
+    low, high = robot.limits_low(dev) + eps, robot.limits_high(dev) - eps
+    outside = int((~((q >= low - 1e-6) & (q <= high + 1e-6)).all(dim=1)).sum())
+    colliding = sum(int(robot.config_self_collides(q[i: i + 262144]).sum()) for i in range(0, N_DATASET, 262144))
+    check(outside == 0, f"{outside} train rows outside the margined joint limits")
+    check(colliding == 0, f"{colliding} train rows self-collide")
+    fk_gap = float((robot.forward_kinematics(q[:N_FK_CHECK]) - poses[:N_FK_CHECK]).abs().max())
+    pos64, rot64 = fk64_errors(robot, q[:N_FK_CHECK].double().cpu().numpy(), poses[:N_FK_CHECK].double().cpu().numpy())
+    check(fk_gap <= FK_DATASET_POS, f"stored poses vs the card's FK: {fk_gap}")
+    check(float(pos64.max()) <= FK_DATASET_POS and float(rot64.max()) <= FK_DATASET_ROT,
+          f"stored poses vs float64 FK: {pos64.max()} m, {rot64.max()} rad")
+    nbytes = q.numel() * q.element_size() + poses.numel() * poses.element_size()
+    emit("dataset", t0, n_train=N_DATASET, n_test=N_DATASET_TEST, build_s=build_s, bytes_resident=nbytes,
+         rows_outside_limits=outside, rows_self_colliding=colliding, fk_rows_checked=N_FK_CHECK,
+         card_fk_max_abs_gap=fk_gap, fk64_max_pos_err_m=float(pos64.max()), fk64_max_rot_err_rad=float(rot64.max()),
+         cut=f"training_set_size {N_DATASET} (build_dataset_resident's default: 25000000)")
+    return ds
+
+
+def _windows_hook(windows, events):
+    """A metric hook that keeps each window's metrics and records a CUDA
+    event at its end."""
+    def hook(step, metrics):
+        if "tr/loss_window_mean" in metrics:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+        windows.append(metrics)
+    return hook
+
+
+def train_run(flow, robot, ds, dev, cfg, window, kernel, other):
+    """``Trainer.fit_on_device`` from ``flow.init`` (seed 0) with the
+    kernels' counts set to 0 just before: -> summary. Checks a finite loss,
+    a last window mean below the first, and one validation through
+    ``kernel`` (2 * nb_nodes launches) and none through ``other``."""
+    from ikflow_tpu_torch.training import Trainer
+
+    params = flow.init(torch.Generator(device=dev).manual_seed(0))
+    windows, events = [], []
+    trainer = Trainer(flow, robot, cfg, metric_hook=_windows_hook(windows, events), device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    kernel.launches = 0
+    other.launches = 0
+    start.record()
+    t0 = time.perf_counter()
+    trained, metrics = trainer.fit_on_device(params, ds, steps_per_call=window)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    means = [m["tr/loss_window_mean"] for m in windows if "tr/loss_window_mean" in m]
+    val = next(m for m in windows if "val/l2_error_mm" in m)
+    ms = [a.elapsed_time(b) / window for a, b in zip([start] + events[:-1], events)]
+    check(metrics["step"] == cfg.n_steps and len(means) == cfg.n_steps // window, f"ran {metrics['step']} steps")
+    check(all(np.isfinite(means)) and np.isfinite(metrics["tr/loss"]), f"non-finite loss: {means}")
+    check(means[-1] < means[0], f"the loss did not fall: window means {means}")
+    check(kernel.launches == 2 * flow.hp.nb_nodes and other.launches == 0,
+          f"validation ran its kernel {kernel.launches} times, the other {other.launches}")
+    n_params = sum(t.numel() for blk in params for s in ("s1", "s2") for lay in blk[s] for t in lay.values())
+    summary = {"steps": metrics["step"], "batch": cfg.batch_size, "params": n_params, "window_loss_means": means,
+               "ms_per_step_windows": ms, "ms_per_step": float(np.median(ms)),
+               "steps_per_s": 1e3 / float(np.median(ms)), "wall_s": wall_s,
+               "peak_memory_bytes": torch.cuda.max_memory_allocated(), "kernel_launches": kernel.launches,
+               "validation": {k: v for k, v in val.items() if k.startswith("val")}}
+    return trained, summary
 
 
 def cold_l2_ms(kernel, params, B, gen, rounds=4):
@@ -389,7 +555,7 @@ def kernel_rows(kernel, plain, bound, params, batches, gen, close, contrast=None
     return rows, max_err, headline
 
 
-def kernel_entry(name, specialization, source, launches, max_err, headline):
+def kernel_entry(name, specialization, source, launches, max_err, headline, training_launches):
     return {
         "name": name,
         "specialization": specialization,
@@ -404,7 +570,109 @@ def kernel_entry(name, specialization, source, launches, max_err, headline):
         "bound_by": headline["bound_by"],
         "library_ms": None,
         "at": {"B": headline["B"], "subnet": headline["subnet"]},
+        "training_launches": training_launches,
     }
+
+
+def training_phases(hp, robot, targets, exact_kw, dev, tmp, shipped=os.path.join(ROOT, "models", "panda__full_sigmoid.npz")):
+    """13. dataset, 14. train_fresh (fp32, its profile, then bf16), 15.
+    train_warm (the train command from the shipped weights, its export
+    served back through K1). Every file goes under ``tmp``. -> the kernels'
+    launches in these phases."""
+    from ikflow_tpu_torch import config
+    from ikflow_tpu_torch.cli.main import main as cli_main
+    from ikflow_tpu_torch.flow.fused_subnet import fused_mlp, fused_mlp_bf16
+    from ikflow_tpu_torch.flow.model import build_flow
+    from ikflow_tpu_torch.registry import get_ik_solver
+    from ikflow_tpu_torch.training import TrainConfig, Trainer
+    from ikflow_tpu_torch.training.checkpoints import load_deploy, read_deploy_header
+    from ikflow_tpu_torch.training.common import tree_leaves
+
+    config.CACHE_DIR = os.path.join(tmp, "cache")
+    config.DATASET_DIR = os.path.join(config.CACHE_DIR, "datasets")
+    config.MODELS_DIR = os.path.join(config.CACHE_DIR, "models")
+    config.TRAINING_LOGS_DIR = os.path.join(config.CACHE_DIR, "training_logs")
+    launches = {"fused_mlp": 0, "fused_mlp_bf16": 0}
+
+    # 13. dataset
+    ds = phase_dataset(robot, dev)
+
+    # 14. train_fresh: full width from flow.init, adamw at lr 1e-4.
+    t0 = time.perf_counter()
+    flow = build_flow(hp, robot)
+    cfg = TrainConfig(n_steps=TRAIN_STEPS, batch_size=TRAIN_BATCH, learning_rate=1e-4, log_every=TRAIN_WINDOW,
+                      eval_every=TRAIN_STEPS, checkpoint_every=0, seed=0)
+    trained, fp32 = train_run(flow, robot, ds, dev, cfg, TRAIN_WINDOW, fused_mlp, fused_mlp_bf16)
+    launches["fused_mlp"] += fp32["kernel_launches"]
+    window_cfg = dataclasses.replace(cfg, n_steps=TRAIN_WINDOW, eval_every=0)
+    split = profile_split(lambda: Trainer(flow, robot, window_cfg, device=dev).fit_on_device(
+        trained, ds, steps_per_call=TRAIN_WINDOW), TRAIN_WINDOW * fp32["ms_per_step"])
+    flow16 = build_flow(dataclasses.replace(hp, bf16_hidden=True), robot)
+    cfg16 = dataclasses.replace(cfg, n_steps=TRAIN_BF16_STEPS, log_every=TRAIN_BF16_WINDOW,
+                                eval_every=TRAIN_BF16_STEPS)
+    _, bf16 = train_run(flow16, robot, ds, dev, cfg16, TRAIN_BF16_WINDOW, fused_mlp_bf16, fused_mlp)
+    launches["fused_mlp_bf16"] += bf16["kernel_launches"]
+    emit("train_fresh", t0, fp32=fp32, profile_window={"steps": TRAIN_WINDOW, **split}, bf16=bf16)
+
+    # 15. train_warm: the train command in-process, from the shipped weights.
+    t0 = time.perf_counter()
+    export = os.path.join(tmp, "panda__full_sigmoid.npz")
+    argv = ["train", "--robot_name", "panda", "--nb_nodes", str(hp.nb_nodes),
+            "--dim_latent_space", str(hp.dim_latent_space), "--coeff_fn_config", str(hp.coeff_fn_config),
+            "--coeff_fn_internal_size", str(hp.coeff_fn_internal_size), "--disable_softflow", "--sigmoid_on_output",
+            "--init_npz", shipped, "--on_device_data", "--n_steps", str(WARM_STEPS), "--steps_per_call", "100",
+            "--learning_rate", "1e-6", "--export", export, "--export_dtype", "float16",
+            "--run_dir", os.path.join(tmp, "run_warm"), "--device", dev.type]
+    fused_mlp.launches = 0
+    fused_mlp_bf16.launches = 0
+    t1 = time.perf_counter()
+    rc = cli_main(argv)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t1
+    cli_launches = fused_mlp.launches
+    launches["fused_mlp"] += cli_launches
+    header = read_deploy_header(export)
+    check(rc == 0, f"train returned {rc}")
+    check(header is not None and header["quality_gate_mm"] == 13.0 and header["stored_dtype"] == "float16"
+          and header["quality"]["val_l2_error_mm"] <= 13.0, f"the export did not pass the 13.0 mm gate: {header}")
+    check(header["warm_start"]["from"] == "panda__full_sigmoid.npz" and header["global_step"] == WARM_STEPS,
+          f"export provenance: {header}")
+    check(cli_launches == 2 * hp.nb_nodes and fused_mlp_bf16.launches == 0,
+          f"the export's validation ran K1 {cli_launches} times, K1' {fused_mlp_bf16.launches} times")
+    # Both weights graded by the port on the same poses and latents.
+    grader = Trainer(flow, robot, TrainConfig(), device=dev)
+    latents = torch.randn((grader.config.val_set_size * grader.config.samples_per_pose, hp.dim_latent_space),
+                          generator=torch.Generator(device=dev).manual_seed(8), device=dev)
+    vals = {}
+    fused_mlp.launches = 0
+    for name, path in (("exported", export), ("shipped", shipped)):
+        params, _ = load_deploy(path, flow.param_shapes(), dev)
+        vals[name] = grader.validate(params, ds, latents=latents)["val/l2_error_mm"]
+    launches["fused_mlp"] += fused_mlp.launches
+    check(abs(vals["exported"] - vals["shipped"]) <= WARM_VAL_RATIO * vals["shipped"],
+          f"val/l2_error_mm of the export {vals['exported']} vs the shipped weights {vals['shipped']}")
+    # Served back: the registry finds the export first, and solves through K1.
+    config.MODELS_DIR = tmp
+    slv, _ = get_ik_solver(MODEL, device=dev)
+    exported_params, _ = load_deploy(export, flow.param_shapes(), dev)
+    check(all(torch.equal(a, b) for a, b in zip(tree_leaves(slv.params), tree_leaves(exported_params))),
+          "get_ik_solver did not load the exported artifact")
+    fused_mlp.launches = 0
+    fused_mlp_bf16.launches = 0
+    g = torch.Generator(device=dev).manual_seed(43)
+    sols, valids, tier_counts = slv.generate_exact_ik_solutions(targets, generator=g, **exact_kw)
+    torch.cuda.synchronize()
+    tiers = [int(c) for c in tier_counts.cpu()]
+    tiers_run = 1 + sum(1 for c in tiers[:-1] if c < N_POSES)
+    check(fused_mlp.launches == 2 * hp.nb_nodes * tiers_run and fused_mlp_bf16.launches == 0,
+          f"the exact solve ran K1 {fused_mlp.launches} times, K1' {fused_mlp_bf16.launches} times")
+    launches["fused_mlp"] += fused_mlp.launches
+    summary = check_solutions(robot, sols.cpu().numpy(), valids.cpu().numpy(), targets.cpu().numpy(), 0.99, 0.01)
+    emit("train_warm", t0, steps=WARM_STEPS, cli_s=cli_s, export_bytes=os.path.getsize(export),
+         export_quality=header["quality"], export_gate_mm=header["quality_gate_mm"],
+         val_l2_error_mm=vals, val_ratio_bound=WARM_VAL_RATIO, exact=summary, tier_counts=tiers,
+         kernel_launches=fused_mlp.launches, export_validation_launches=cli_launches)
+    return launches
 
 
 def main():
@@ -420,6 +688,7 @@ def main():
         fused_mlp_plain,
         split_tf32,
     )
+    from ikflow_tpu_torch.flow.model import build_flow
     from ikflow_tpu_torch.parallel.fleet import solve_exact_megabatch
     from ikflow_tpu_torch.registry import get_ik_solver
     from ikflow_tpu_torch.solver import IKFlowSolver
@@ -621,24 +890,51 @@ def main():
     params_cpu = [{k: [{n: t.cpu() for n, t in lay.items()} for lay in blk[k]] for k in blk}
                   for blk in solver.params]
 
-    def flow_vs_cpu(slv, phase, atol, mean_atol=None):
-        """The card's flow (kernel) vs the plain flow on the CPU, 64 rows; a bf16
-        flow is also set beside the fp32 flow on the CPU, for contrast."""
+    def flow_vs_cpu(slv, phase, atol):
+        """The card's flow (kernel) vs the plain flow on the CPU, 64 rows."""
         t0 = time.perf_counter()
         latent = torch.randn((64, hp.dim_latent_space), generator=gen, device=dev)
         q_card, _ = slv.flow.inverse(slv._kernel_params, latent, targets[:64])
         q_cpu, _ = slv.flow.inverse(params_cpu, latent.cpu(), targets[:64].cpu())
         err = (q_card.cpu() - q_cpu).abs()
         check(float(err.max()) <= atol, f"card flow vs CPU flow: max abs err {float(err.max())} > {atol}")
-        extra = {}
-        if mean_atol is not None:
-            check(float(err.mean()) <= mean_atol, f"card flow vs CPU flow: mean abs err {float(err.mean())}")
-            q_fp32, _ = solver.flow.inverse(params_cpu, latent.cpu(), targets[:64].cpu())
-            contrast = (q_card.cpu() - q_fp32).abs()
-            extra = {"mean_atol": mean_atol, "contrast_fp32_flow_max_abs_err": float(contrast.max()),
-                     "contrast_fp32_flow_mean_abs_err": float(contrast.mean())}
         emit(f"flow_vs_cpu{phase}", t0, rows=64, max_abs_err=float(err.max()), mean_abs_err=float(err.mean()),
-             atol=atol, **extra)
+             atol=atol)
+
+    def flow_vs_cpu_bf16(slv):
+        """K1''s flow and the card's plain bf16 flow, each against the plain
+        bf16 flow on the CPU, over FLOW_BF16_DRAWS draws of 64 rows (latents
+        from seed 1000 + d, 64 of the targets); the one-draw reading (the
+        draw this phase made before the bar) with the fp32 flow beside it."""
+        t0 = time.perf_counter()
+        plain_flow = build_flow(slv.flow.hp, robot)
+        plain_flow._subnet_kernel = fused_mlp_bf16_plain  # the witness: plain sums on the card
+        latent = torch.randn((64, hp.dim_latent_space), generator=gen, device=dev)
+        q_card, _ = slv.flow.inverse(slv._kernel_params, latent, targets[:64])
+        q_cpu, _ = slv.flow.inverse(params_cpu, latent.cpu(), targets[:64].cpu())
+        q_fp32, _ = solver.flow.inverse(params_cpu, latent.cpu(), targets[:64].cpu())
+        err, contrast = (q_card.cpu() - q_cpu).abs(), (q_card.cpu() - q_fp32).abs()
+        one_draw = {"max_abs_err": float(err.max()), "mean_abs_err": float(err.mean()), "atol": FLOW_BF16_ATOL,
+                    "mean_atol": FLOW_BF16_MEAN_ATOL, "contrast_fp32_flow_max_abs_err": float(contrast.max()),
+                    "contrast_fp32_flow_mean_abs_err": float(contrast.mean())}
+        maxes = {"kernel": [], "plain_card": []}
+        for d in range(FLOW_BF16_DRAWS):
+            z = torch.randn((64, hp.dim_latent_space), generator=torch.Generator(device=dev).manual_seed(1000 + d),
+                            device=dev)
+            cond = targets[64 * (d % 15): 64 * (d % 15) + 64]
+            ref, _ = slv.flow.inverse(params_cpu, z.cpu(), cond.cpu())
+            for name, (f, p) in (("kernel", (slv.flow, slv._kernel_params)), ("plain_card", (plain_flow, slv.params))):
+                maxes[name].append(float((f.inverse(p, z, cond)[0].cpu() - ref).abs().max()))
+        over = {k: sum(m > FLOW_BF16_ATOL for m in v) for k, v in maxes.items()}
+        median = {k: float(np.median(v)) for k, v in maxes.items()}
+        check(over["kernel"] <= over["plain_card"] + FLOW_BF16_DRAW_MARGIN,
+              f"K1''s flow passes {FLOW_BF16_ATOL} on {FLOW_BF16_DRAWS - over['kernel']} of {FLOW_BF16_DRAWS} draws, "
+              f"the plain flow on {FLOW_BF16_DRAWS - over['plain_card']}")
+        check(median["kernel"] <= FLOW_BF16_MEDIAN_FACTOR * median["plain_card"],
+              f"K1''s flow median per-draw max {median['kernel']} vs plain {median['plain_card']}")
+        emit("flow_vs_cpu_bf16", t0, rows=64, draws=FLOW_BF16_DRAWS, atol=FLOW_BF16_ATOL,
+             draw_margin=FLOW_BF16_DRAW_MARGIN, median_factor=FLOW_BF16_MEDIAN_FACTOR, draws_over_atol=over,
+             median_draw_max_abs_err=median, max_abs_err={k: max(v) for k, v in maxes.items()}, one_draw=one_draw)
 
     # 5-8. The fp32 main path (K1), where the time goes, and the flow against the CPU.
     main_path_launches, tiers_fp32 = approx_and_exact(solver, "", fused_mlp, fused_mlp_bf16)
@@ -651,7 +947,7 @@ def main():
     t0 = time.perf_counter()
     emit("profile_bf16", t0, tier_counts_fp32=tiers_fp32, tier_counts_bf16=tiers_bf16,
          **profile_exact(solver_bf16, targets, g))
-    flow_vs_cpu(solver_bf16, "_bf16", FLOW_BF16_ATOL, FLOW_BF16_MEAN_ATOL)
+    flow_vs_cpu_bf16(solver_bf16)
 
     # 10. megabatch: 100000 reachable poses streamed through the fp32 solver,
     # then through the bf16 solver (K1').
@@ -721,17 +1017,36 @@ def main():
          bf16_tight=KERNEL_BF16_TIGHT, bf16_tight_share=KERNEL_BF16_TIGHT_SHARE, bf16_loose=KERNEL_BF16_LOOSE,
          rows_bf16=rows_pb)
 
+    # 13-15. Training, with every file under a temporary cache tree.
+    with tempfile.TemporaryDirectory(prefix="ikflow_chip_smoke_") as tmp:
+        training_launches = training_phases(hp, robot, targets, exact_kw, dev, tmp)
+
+    # 16. K1 and K1' against their plain versions at the rows each validation
+    # gave them (val_set_size poses x samples_per_pose).
+    from ikflow_tpu_torch.training import TrainConfig
+
+    t0 = time.perf_counter()
+    val_rows = [TrainConfig().val_set_size * TrainConfig().samples_per_pose]
+    rows_t, max_err_t, _ = kernel_rows(fused_mlp, fused_mlp_plain, subnet_bound, solver._kernel_params, val_rows,
+                                       torch.Generator(device=dev).manual_seed(4), close_fp32)
+    rows_tb, max_err_tb, _ = kernel_rows(fused_mlp_bf16, fused_mlp_bf16_plain, subnet_bound_bf16,
+                                         solver_bf16._kernel_params, val_rows,
+                                         torch.Generator(device=dev).manual_seed(5), close_bf16)
+    emit("kernel_vs_plain_training", t0, batches=val_rows, rows=rows_t, rows_bf16=rows_tb)
+
     print(json.dumps({"kernels": [
         kernel_entry("fused_mlp", "bf16_hidden=False: fp32 contract, hidden layers 3xTF32 on wgmma m64n128k8 "
                      "with packed tf32 hi/lo weight planes, 64-row tiles split over 8-CTA clusters, "
                      "a staging warpgroup, first/last layer fp32 FFMA",
-                     "ikflow_tpu_torch/csrc/fused_mlp.cu", main_path_launches, max(max_err, max_err_p), headline),
+                     "ikflow_tpu_torch/csrc/fused_mlp.cu", main_path_launches, max(max_err, max_err_p, max_err_t), headline,
+                     training_launches["fused_mlp"]),
         kernel_entry("fused_mlp_bf16", "bf16_hidden=True: hidden layers bf16 on wgmma m64n128k16 with fp32 "
                      "accumulation, 64-row tiles split over 8-CTA clusters, weights packed once and streamed by "
                      "cp.async.bulk into a 4-slot mbarrier ring, activations pulled from the peers over DSMEM by a "
                      "staging warpgroup, two CTAs per SM, first/last layer fp32 FFMA",
-                     "ikflow_tpu_torch/csrc/fused_mlp_bf16.cu", main_path_launches_bf16, max(max_err_b, max_err_pb),
-                     headline_b),
+                     "ikflow_tpu_torch/csrc/fused_mlp_bf16.cu", main_path_launches_bf16,
+                     max(max_err_b, max_err_pb, max_err_tb),
+                     headline_b, training_launches["fused_mlp_bf16"]),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"total_seconds": round(time.perf_counter() - t_all, 3)}), flush=True)

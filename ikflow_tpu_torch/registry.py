@@ -12,7 +12,7 @@ import os
 from typing import Dict, Optional, Tuple
 
 from ikflow_tpu_torch import config
-from ikflow_tpu_torch.checkpoints import load_deploy
+from ikflow_tpu_torch.training.checkpoints import load_deploy
 from ikflow_tpu_torch.flow.model import build_flow
 from ikflow_tpu_torch.flow.params import FlowHyperParams
 from ikflow_tpu_torch.robots import get_robot

@@ -2,8 +2,9 @@
 Jacobian on torch tensors.
 
 Port of ``ikflow_tpu/robots/chain.py`` (``_rollout``, FK, the geometric
-Jacobian, joint-limit helpers, sampling, and the capsule self-collision check
-with its host-calibrated pair list).
+Jacobian, joint-limit helpers, sampling with the optional self-collision
+filter, and the capsule self-collision check with its host-calibrated pair
+list).
 
 The chain data is host numpy (float64); per device and dtype it is cast once
 into constant tensors. The 3x3 products are written as broadcast
@@ -250,6 +251,35 @@ class KinematicChain:
         high = c["high"] - joint_limit_eps
         u = torch.rand((n, self._ndof), generator=generator, device=generator.device, dtype=dtype)
         return low + u * (high - low)
+
+    def sample_joint_angles_and_poses(
+        self,
+        n: int,
+        generator: torch.Generator,
+        joint_limit_eps: float = 0.0,
+        only_non_self_colliding: bool = False,
+        oversample_factor: int = 2,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(q, pose) pairs on the generator's device. With
+        ``only_non_self_colliding``, draw ``n * oversample_factor`` configs and
+        keep the first ``n`` collision-free ones (a stable argsort on the
+        collision mask puts the colliding rows last); raise if fewer than
+        ``n`` are collision-free."""
+        if not only_non_self_colliding:
+            q = self.sample_joint_angles(n, generator, joint_limit_eps)
+            return q, self.forward_kinematics(q)
+        m = n * oversample_factor
+        q = self.sample_joint_angles(m, generator, joint_limit_eps)
+        colliding = self.config_self_collides(q)
+        n_clean = m - int(colliding.sum())
+        if n_clean < n:
+            raise ValueError(
+                f"only {n_clean}/{m} oversampled configs are collision-free (need {n}); "
+                f"raise oversample_factor (currently {oversample_factor})"
+            )
+        order = torch.sort(colliding.to(torch.uint8), stable=True).indices  # collision-free rows first
+        q = q[order[:n]]
+        return q, self.forward_kinematics(q)
 
     # ------------------------------------------------------------------
     # Host (numpy, float64) calibration of the collision pair list.

@@ -1,0 +1,290 @@
+"""Training loop: the update step, validation, step-based log / eval /
+checkpoint cadences, and JSONL metrics.
+
+Port of ``ikflow_tpu/training/trainer.py`` for one device:
+
+- ``_step``: loss, ``torch.autograd`` gradients, gradient stats, clipping,
+  optimizer and schedule, with the ``tr/*`` metrics;
+- ``validate``: for each of ``val_set_size`` test poses, ``samples_per_pose``
+  latents through the flow inverse (kernel K1, or K1' with ``bf16_hidden``)
+  in one batch, graded unclamped (``val/*``) and clamped to the joint limits
+  (``val_clamped/*``);
+- ``fit``: host batches, one transfer per step;
+- ``fit_on_device``: the train split resident on the device, batch indices
+  drawn there, and one host synchronisation per ``steps_per_call`` window.
+
+The training forward runs the plain subnet under autograd (with
+``bf16_hidden``, its bf16 plain version, as the JAX package's
+``apply_subnet``); TF32 stays off. Every run draws from generators seeded by
+``(seed, start_step)``, so a resumed run continues with a fresh stream.
+``fit`` and ``fit_on_device`` copy the parameters at entry and leave the
+caller's tensors untouched. Data parallelism is not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import time
+from typing import Callable, Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ikflow_tpu_torch.config import disable_tf32, resolve_device
+from ikflow_tpu_torch.evaluation import evaluate_solutions
+from ikflow_tpu_torch.flow.model import GlowFlow
+from ikflow_tpu_torch.robots.chain import KinematicChain
+from ikflow_tpu_torch.training.checkpoints import save_checkpoint
+from ikflow_tpu_torch.training.common import generator, tree_leaves, tree_map
+from ikflow_tpu_torch.training.dataset import IkDataset, iterate_batches
+from ikflow_tpu_torch.training.loss import Noise, make_loss_fn
+from ikflow_tpu_torch.training.optimizers import Optimizer, make_optimizer
+
+# Generator streams of one seed.
+_STREAM_STEPS = 0
+_STREAM_BATCHES = 1
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    optimizer: str = "adamw"
+    learning_rate: float = 1e-4
+    batch_size: int = 512
+    gamma: float = 0.9795
+    step_lr_every: int = 39062  # int(2.5e6 / 64)
+    warmup_steps: int = 0  # linear LR ramp; stabilizes deep stacks at large batch
+    gradient_clip: float = 1.0
+    gradient_clip_algorithm: str = "value"  # "value" | "norm"
+    n_steps: int = 20_000
+    eval_every: int = 20_000
+    log_every: int = 1_000
+    checkpoint_every: int = 250_000
+    val_set_size: int = 128
+    samples_per_pose: int = 100
+    seed: int = 0
+
+
+def grad_stats(grads: Sequence[torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Mean, mean absolute and largest absolute gradient over every element."""
+    count = sum(g.numel() for g in grads)
+    return {
+        "tr/grad_ave": sum(g.sum() for g in grads) / count,
+        "tr/grad_abs_ave": sum(g.abs().sum() for g in grads) / count,
+        "tr/grad_max": torch.stack([g.abs().max() for g in grads]).max(),
+    }
+
+
+def _trainable(params):
+    """A copy of ``params`` whose leaves are fresh tensors that need grads."""
+    return tree_map(lambda t: t.detach().clone().requires_grad_(True), params)
+
+
+def _detached(params):
+    return tree_map(lambda t: t.detach(), params)
+
+
+class Trainer:
+    def __init__(
+        self,
+        flow: GlowFlow,
+        robot: KinematicChain,
+        config: TrainConfig = TrainConfig(),
+        log_dir: Optional[str] = None,
+        metric_hook: Optional[Callable[[int, Dict], None]] = None,
+        device="cuda",
+    ):
+        disable_tf32()
+        self.flow = flow
+        self.robot = robot
+        self.config = config
+        self.device = resolve_device(device)
+        self.log_dir = log_dir
+        self.metric_hook = metric_hook
+        self._metrics_file = None
+        if log_dir:
+            os.makedirs(log_dir, exist_ok=True)
+            self._metrics_file = open(os.path.join(log_dir, "metrics.jsonl"), "a")
+        self.loss_fn = make_loss_fn(flow, robot.ndof)
+
+    def close(self) -> None:
+        if self._metrics_file is not None:
+            self._metrics_file.close()
+            self._metrics_file = None
+
+    def make_optimizer(self, params) -> Optimizer:
+        """The configured optimizer over the leaves of ``params``."""
+        c = self.config
+        return make_optimizer(tree_leaves(params), c.optimizer, c.learning_rate, c.gamma, c.step_lr_every,
+                              c.gradient_clip, c.warmup_steps, c.gradient_clip_algorithm)
+
+    # ------------------------------------------------------------------
+    def _step(self, params, optimizer: Optimizer, q: torch.Tensor, poses: torch.Tensor,
+              generator: Optional[torch.Generator] = None, noise: Optional[Noise] = None,
+              with_metrics: bool = True) -> Dict[str, torch.Tensor]:
+        """One update of ``params`` (leaves that need grads, the optimizer's)
+        in place. Returns the ``tr/*`` metrics as tensors, or only
+        ``tr/loss`` without ``with_metrics``."""
+        loss, metrics = self.loss_fn(params, q, poses, generator=generator, noise=noise)
+        leaves = optimizer.params
+        grads = torch.autograd.grad(loss, leaves)
+        out = {"tr/loss": loss.detach()}
+        if with_metrics:
+            out.update(metrics)
+            out.update(grad_stats(grads))
+        for p, g in zip(leaves, grads):
+            p.grad = g
+        optimizer.step()
+        optimizer.zero_grad()
+        return out
+
+    # ------------------------------------------------------------------
+    def _log(self, step: int, metrics: Dict) -> None:
+        payload = {k: float(v) for k, v in metrics.items()}
+        payload["step"] = step
+        if self._metrics_file:
+            self._metrics_file.write(json.dumps(payload) + "\n")
+            self._metrics_file.flush()
+        if self.metric_hook:
+            self.metric_hook(step, payload)
+
+    @torch.no_grad()
+    def validate(self, params, dataset: IkDataset, generator: Optional[torch.Generator] = None, step: int = 0,
+                 latents: Optional[torch.Tensor] = None) -> Dict[str, float]:
+        """Grade ``min(val_set_size, n_test)`` test poses with
+        ``samples_per_pose`` flow samples each; the latents come from
+        ``generator`` unless given, (n_poses * samples_per_pose, D), pose-major."""
+        n = min(self.config.val_set_size, dataset.samples_te.shape[0])
+        m = self.config.samples_per_pose
+        flow, dev = self.flow, self.device
+        poses = torch.as_tensor(np.asarray(dataset.endpoints_te[:n]), dtype=torch.float32, device=dev)
+        if latents is None:
+            if generator is None:
+                raise ValueError("pass a generator or the latents")
+            latents = torch.randn((n * m, flow.D), generator=generator, device=dev)
+        latents = latents.to(dev)
+        poses_t = poses.repeat_interleave(m, dim=0)
+        cond = poses_t
+        if flow.dim_cond > 7:
+            cond = torch.cat([poses_t, poses_t.new_zeros((poses_t.shape[0], flow.dim_cond - 7))], dim=1)
+        q, _ = flow.inverse(flow.kernel_params(_detached(params)), latents, cond)
+        sols = q[:, : self.robot.ndof]
+        out = {}
+        for tag, s in (("val", sols), ("val_clamped", self.robot.clamp_to_joint_limits(sols))):
+            ev = evaluate_solutions(self.robot, poses_t, s)
+            out[f"{tag}/l2_error_mm"] = 1000.0 * ev.pos_errors.mean()
+            out[f"{tag}/l2_error_mm_max"] = 1000.0 * ev.pos_errors.max()
+            out[f"{tag}/angular_error_deg"] = torch.rad2deg(ev.rot_errors.mean())
+            out[f"{tag}/angular_error_deg_max"] = torch.rad2deg(ev.rot_errors.max())
+            out[f"{tag}/pct_joint_limits_exceeded"] = 100.0 * ev.joint_limits_exceeded.float().mean()
+            out[f"{tag}/pct_self_colliding"] = 100.0 * ev.self_colliding.float().mean()
+        values = torch.stack(list(out.values())).cpu().tolist()
+        out = dict(zip(out, values))
+        self._log(step, out)
+        return out
+
+    def _start(self, params, opt_state, start_step: int):
+        """Trainable copies of ``params``, their optimizer (``opt_state``
+        loaded when given) and the run's generator on the device."""
+        params = _trainable(tree_map(lambda t: t.to(self.device), params))
+        optimizer = self.make_optimizer(params)
+        if opt_state is not None:
+            optimizer.load_state_dict(opt_state)
+        return params, optimizer, generator(self.device, self.config.seed, _STREAM_STEPS, start_step)
+
+    def _checkpoint(self, checkpoint_dir: str, step: int, params, optimizer: Optimizer) -> None:
+        save_checkpoint(checkpoint_dir, step, _detached(params), optimizer.state_dict())
+
+    # ------------------------------------------------------------------
+    def fit_on_device(
+        self,
+        params,
+        dataset: IkDataset,
+        checkpoint_dir: Optional[str] = None,
+        steps_per_call: int = 100,
+        opt_state=None,
+        time_budget_s: Optional[float] = None,
+        start_step: int = 0,
+    ):
+        """``fit`` with the train split resident on the device: each step
+        draws its batch indices there, and the host reads the losses once per
+        window of ``steps_per_call`` steps. Logs the last loss and the
+        window's mean; eval and checkpoint cadences round to whole windows.
+        With ``time_budget_s`` the run stops at the first window end past the
+        budget. Returns (params, metrics); ``metrics["step"]`` is the step
+        reached."""
+        cfg, dev = self.config, self.device
+        params, optimizer, gen = self._start(params, opt_state, start_step)
+        samples = torch.as_tensor(dataset.samples_tr, device=dev)
+        endpoints = torch.as_tensor(dataset.endpoints_tr, device=dev)
+        n_data = dataset.n_train
+        last_metrics: Dict = {}
+        step = start_step
+        t_start = time.time()
+        while step < cfg.n_steps:
+            t0 = time.time()
+            losses = torch.empty((steps_per_call,), device=dev)
+            for i in range(steps_per_call):
+                idx = torch.randint(0, n_data, (cfg.batch_size,), generator=gen, device=dev)
+                m = self._step(params, optimizer, samples[idx], endpoints[idx], generator=gen, with_metrics=False)
+                losses[i] = m["tr/loss"]
+            mean_loss, last_loss = torch.stack([losses.mean(), losses[-1]]).cpu().tolist()
+            step += steps_per_call
+            dt = time.time() - t0
+            if not np.isfinite(last_loss):
+                raise ValueError(f"loss is not finite at step {step}: {last_loss}")
+            metrics = {
+                "tr/loss": last_loss,
+                "tr/loss_window_mean": mean_loss,
+                "tr/learning_rate": optimizer.learning_rate,
+                "tr/batches_p_sec": steps_per_call / max(dt, 1e-9),
+            }
+            if step % max(cfg.log_every, steps_per_call) < steps_per_call:
+                self._log(step, metrics)
+            last_metrics = metrics
+            if cfg.eval_every and step % max(cfg.eval_every, steps_per_call) < steps_per_call:
+                self.validate(params, dataset, gen, step)
+            if checkpoint_dir and cfg.checkpoint_every and step % max(cfg.checkpoint_every, steps_per_call) < steps_per_call:
+                self._checkpoint(checkpoint_dir, step, params, optimizer)
+            if time_budget_s is not None and time.time() - t_start > time_budget_s:
+                break
+        if checkpoint_dir:
+            self._checkpoint(checkpoint_dir, step, params, optimizer)
+        return _detached(params), dict(last_metrics, step=step)
+
+    def fit(self, params, dataset: IkDataset, checkpoint_dir: Optional[str] = None, start_step: int = 0,
+            opt_state=None):
+        """Train from ``start_step`` to ``n_steps`` on host batches; returns
+        (params, the last logged metrics with ``step``)."""
+        cfg, dev = self.config, self.device
+        params, optimizer, gen = self._start(params, opt_state, start_step)
+        batches = iterate_batches(dataset, cfg.batch_size, [cfg.seed, _STREAM_BATCHES, start_step])
+        last_metrics: Dict = {}
+        t_window = time.time()
+        window_steps = 0
+        for step in range(start_step, cfg.n_steps):
+            q, poses = next(batches)
+            q = torch.as_tensor(q, device=dev)
+            poses = torch.as_tensor(poses, device=dev)
+            metrics = self._step(params, optimizer, q, poses, generator=gen)
+            window_steps += 1
+            if cfg.log_every and step % cfg.log_every == 0:
+                values = torch.stack(list(metrics.values())).cpu().tolist()
+                metrics = dict(zip(metrics, values))
+                if not np.isfinite(metrics["tr/loss"]):
+                    raise ValueError(f"loss is not finite at step {step}: {metrics['tr/loss']}")
+                dt = time.time() - t_window
+                metrics["tr/learning_rate"] = optimizer.learning_rate
+                metrics["tr/batches_p_sec"] = window_steps / max(dt, 1e-9)
+                self._log(step, metrics)
+                last_metrics = metrics
+                t_window = time.time()
+                window_steps = 0
+            if cfg.eval_every and step > 0 and step % cfg.eval_every == 0:
+                self.validate(params, dataset, gen, step)
+            if checkpoint_dir and cfg.checkpoint_every and step > 0 and step % cfg.checkpoint_every == 0:
+                self._checkpoint(checkpoint_dir, step, params, optimizer)
+        if checkpoint_dir:
+            self._checkpoint(checkpoint_dir, cfg.n_steps, params, optimizer)
+        return _detached(params), dict(last_metrics, step=cfg.n_steps)

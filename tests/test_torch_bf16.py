@@ -18,7 +18,7 @@ import torch
 
 from ikflow_tpu.flow import apply_subnet
 from ikflow_tpu.flow.pallas_subnet import fused_mlp as jax_fused_mlp, pad_subnet_params
-from ikflow_tpu_torch.checkpoints import params_from_jax
+from ikflow_tpu_torch.training.checkpoints import params_from_jax
 from ikflow_tpu_torch.flow import fused_mlp_bf16, fused_mlp_bf16_plain, fused_mlp_plain, prepare_bf16_subnet
 from ikflow_tpu_torch.flow import fused_subnet
 from ikflow_tpu_torch.flow.fused_subnet import pack_bf16_weight

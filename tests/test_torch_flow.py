@@ -17,7 +17,7 @@ from ikflow_tpu.flow import apply_subnet, build_flow as jax_build_flow, tiny_mod
 from ikflow_tpu.flow.pallas_subnet import fused_mlp as jax_fused_mlp, pad_subnet_params
 from ikflow_tpu.robots import get_robot as jax_get_robot
 from ikflow_tpu.training.checkpoints import load_deploy as jax_load_deploy
-from ikflow_tpu_torch.checkpoints import load_deploy, params_from_jax, read_deploy_header
+from ikflow_tpu_torch.training.checkpoints import load_deploy, params_from_jax, read_deploy_header
 from ikflow_tpu_torch.flow import build_flow, fused_mlp, fused_mlp_plain, tiny_model_params
 from ikflow_tpu_torch.flow import fused_subnet
 from ikflow_tpu_torch.robots import get_robot

@@ -197,3 +197,41 @@ def test_bf16_flow_inverse_runs_the_bf16_kernel(cuda):
                                for blk in solver.params])
     q_cpu = cpu.generate_ik_solutions(poses.cpu(), latent=latent.cpu(), allow_uninitialized=True)
     assert_bf16_close(q_card.cpu(), q_cpu)
+
+
+def test_training_stays_on_the_card_and_validates_through_k1(cuda):
+    """50 resident steps of a tiny flow: data, parameters and optimizer on the
+    card, TF32 off, and the step-50 validation through K1 (2 x 3 launches).
+    The training forward (plain subnets under autograd) on the card matches
+    the CPU's within atol 1e-4 on z and 1e-4 x max(1, |logdet|) on logdet:
+    fp32 sums of cuBLAS and of the CPU in another order."""
+    from ikflow_tpu_torch.flow import build_flow
+    from ikflow_tpu_torch.training import TrainConfig, Trainer, build_dataset_resident
+    from ikflow_tpu_torch.training.common import tree_leaves, tree_map
+
+    hp = tiny_model_params()
+    hp.dim_latent_space, hp.sigmoid_on_output, hp.softflow_enabled = 8, True, False
+    robot = get_robot("panda")
+    flow = build_flow(hp, robot)
+    params = flow.init(torch.Generator(device=cuda).manual_seed(0))
+    ds = build_dataset_resident(robot, training_set_size=8192, test_set_size=64, device=cuda)
+    assert ds.samples_tr.is_cuda and ds.endpoints_tr.is_cuda
+    windows = []
+    cfg = TrainConfig(n_steps=50, batch_size=256, log_every=10, eval_every=50, val_set_size=8, samples_per_pose=16,
+                      learning_rate=1e-3)
+    trainer = Trainer(flow, robot, cfg, metric_hook=lambda s, m: windows.append(m), device=cuda)
+    before = fused_mlp.launches
+    trained, metrics = trainer.fit_on_device(params, ds, steps_per_call=10)
+    assert metrics["step"] == 50 and np.isfinite(metrics["tr/loss"])
+    assert fused_mlp.launches - before == 2 * hp.nb_nodes
+    losses = [m["tr/loss_window_mean"] for m in windows if "tr/loss_window_mean" in m]
+    assert len(losses) == 5 and losses[-1] < losses[0]
+    assert any("val/l2_error_mm" in m for m in windows)
+    assert all(t.is_cuda for t in tree_leaves(trained))
+    assert not torch.backends.cuda.matmul.allow_tf32
+    x = torch.cat([ds.samples_tr[:64], torch.zeros((64, 1), device=cuda)], dim=1)
+    cond = ds.endpoints_tr[:64]
+    z, logdet = flow.forward(trained, x, cond)
+    z_cpu, logdet_cpu = flow.forward(tree_map(lambda t: t.cpu(), trained), x.cpu(), cond.cpu())
+    torch.testing.assert_close(z.cpu(), z_cpu, atol=1e-4, rtol=0)
+    assert float((logdet.cpu() - logdet_cpu).abs().max()) <= 1e-4 * max(1.0, float(logdet_cpu.abs().max()))

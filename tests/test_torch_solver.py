@@ -22,7 +22,7 @@ from ikflow_tpu.robots import get_robot as jax_get_robot
 from ikflow_tpu.solver import IKFlowSolver as JaxSolver
 from ikflow_tpu.solver import derive_retry_capacities as jax_derive_retry_capacities
 from ikflow_tpu_torch import config, registry
-from ikflow_tpu_torch.checkpoints import params_from_jax
+from ikflow_tpu_torch.training.checkpoints import params_from_jax
 from ikflow_tpu_torch.flow import FlowHyperParams, tiny_model_params
 from ikflow_tpu_torch.robots import get_robot
 from ikflow_tpu_torch.solver import (
