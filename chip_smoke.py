@@ -59,10 +59,30 @@ import faulthandler; faulthandler.dump_traceback_later(600, exit=True)  # noqa: 
 #     and latents, then served by ``get_ik_solver`` and solved exactly through
 #     K1 on the 1000 poses of phase 6;
 # 16. kernel_vs_plain_training: K1 and K1' against their plain versions at
-#     the 12800 rows each validation gave them.
+#     the 12800 rows each validation gave them;
+# 17. fk_oracle: the card's FK of each of the four robots on 100000 uniform
+#     samples against the float64 C++ oracle (``native/fk_oracle.cpp``, built
+#     with g++ into ``build/`` beside the kernels);
+# 18-20, 22-23. the serving command line in-process (``ikflow-torch``):
+#     cli_solve (``solve --exact -n 16`` on a reachable pose, every line [ok]
+#     and rechecked in float64, then the detailed and --diverse forms),
+#     cli_evaluate (``evaluate`` of the shipped weights at its defaults, 500
+#     poses x 50 samples, held to the JAX package's row of
+#     model_performances.md, then --do_refinement, valid >= 0.99),
+#     cli_evaluate_all (``evaluate --all --uninitialized``: a row for each of
+#     the eight registered architectures at full width, each row served from
+#     shipped weights within 2x the JAX package's mean l2, K1 launched 2 x
+#     blocks times per inverse), cli_benchmark (the runtime curve with --capacity
+#     probe, the 100000-pose megabatch whose warm leg runs no probe chunk,
+#     --compare with both native rows) and cli_build_dataset (100000 rows,
+#     reloaded and checked);
+# 21. kernel_vs_plain_models: K1 against its plain version at every distinct
+#     subnet shape of the eight architectures (inputs 10-13, outputs 6-10,
+#     random weights) at 1000, 25000 and the refinement's largest row count.
 #
-# Phases 13-15 write every file (cache, datasets, run directory, checkpoints,
-# the export) under a temporary directory that is removed at the end.
+# Phases 13-15 and 17-23 write every file (cache, datasets, run directory,
+# checkpoints, the export, the performances table) under temporary
+# directories that are removed at the end.
 #
 # A kernel's ``ms`` (and ``plain_ms``, ``k1_ms``, ``cold_l2_ms``) is time per
 # call with the calls launched one by one from Python between CUDA events, as
@@ -76,8 +96,10 @@ import faulthandler; faulthandler.dump_traceback_later(600, exit=True)  # noqa: 
 # prints no result.
 
 import concurrent.futures  # noqa: E402
+import contextlib  # noqa: E402
 import ctypes  # noqa: E402
 import dataclasses  # noqa: E402
+import io  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import re  # noqa: E402
@@ -153,6 +175,26 @@ TRAIN_STEPS, TRAIN_BATCH, TRAIN_WINDOW = 300, 512, 100
 TRAIN_BF16_STEPS, TRAIN_BF16_WINDOW = 100, 50
 WARM_STEPS = 200
 WARM_VAL_RATIO = 0.10  # the exported weights' val l2 error within 10% of the shipped weights'
+# The serving command line (phases 17-23).
+N_ORACLE = 100_000  # uniform samples per robot, the card's FK against the float64 oracle
+PRINTED_Q_SLACK_POS = 5e-5  # solve prints q to 5 decimals: 7 joints x 5e-6 rad x 1.2 m is 4.2e-5 m
+PRINTED_Q_SLACK_ROT = 1e-4  # radians (7 x 5e-6 rad, with margin)
+# evaluate at its defaults, held to the JAX package's panda__full__sigmoid row
+# of model_performances.md (accuracy of the trained model, not a speed).
+EVAL_REFERENCE = {"mean_l2_error_mm": 6.79, "mean_angular_error_deg": 2.16, "mean_pairwise_dq_rad": 3.693}
+EVAL_REL_TOL = 0.10
+EVAL_ROWS = 500 * 50  # evaluate's default testset x samples per pose: one inverse
+EVAL_SELF_COLLIDING = (2.0, 5.0)  # percent (JAX: 3.26)
+# evaluate --all: each row served from shipped weights has its mean l2 error
+# within EVAL_ALL_L2_FACTOR x the JAX package's row of model_performances.md
+# (500 x 50 there, 100 x 10 here; random weights read 598-961 mm).
+EVAL_ALL_L2_MM = {
+    "panda__full__lp191_5.25m": 7.89, "panda_lite_tpm": 11.04, "fetch_full_temp_nsc_tpm": 10.86,
+    "fetch__large__ns183_9.75m": 13.25, "fetch_arm__large__mh186_9.25m": 8.94,
+    "rizon4__snowy-brook-208__global_step=2.75M": 7.30, "panda__lite__sigmoid": 12.22, "panda__full__sigmoid": 6.79,
+}
+EVAL_ALL_L2_FACTOR = 2.0
+N_CLI_DATASET = 100_000
 MATMUL_KERNEL = re.compile(r"gemm|cutlass|xmma|matmul|fused_mlp", re.IGNORECASE)
 
 
@@ -555,7 +597,7 @@ def kernel_rows(kernel, plain, bound, params, batches, gen, close, contrast=None
     return rows, max_err, headline
 
 
-def kernel_entry(name, specialization, source, launches, max_err, headline, training_launches):
+def kernel_entry(name, specialization, source, launches, max_err, headline, training_launches, cli_launches):
     return {
         "name": name,
         "specialization": specialization,
@@ -571,6 +613,7 @@ def kernel_entry(name, specialization, source, launches, max_err, headline, trai
         "library_ms": None,
         "at": {"B": headline["B"], "subnet": headline["subnet"]},
         "training_launches": training_launches,
+        "cli_launches": cli_launches,
     }
 
 
@@ -675,6 +718,346 @@ def training_phases(hp, robot, targets, exact_kw, dev, tmp, shipped=os.path.join
     return launches
 
 
+@contextlib.contextmanager
+def watch_inverses():
+    """Record (blocks, rows) of every ``GlowFlow.inverse`` call in the block:
+    each call launches its subnet kernel 2 * blocks times on ``rows`` rows."""
+    from ikflow_tpu_torch.flow import model
+
+    calls, inverse = [], model.GlowFlow.inverse
+
+    def recorded(self, params, z, cond):
+        calls.append((self.hp.nb_nodes, z.shape[0]))
+        return inverse(self, params, z, cond)
+
+    model.GlowFlow.inverse = recorded
+    try:
+        yield calls
+    finally:
+        model.GlowFlow.inverse = inverse
+
+
+@contextlib.contextmanager
+def watch_megabatch():
+    """Record the per-chunk stats of every probe/tuple/None megabatch call."""
+    from ikflow_tpu_torch.parallel import fleet
+
+    runs, capped = [], fleet._megabatch_capped
+
+    def recorded(*args, **kwargs):
+        out = capped(*args, **kwargs)
+        runs.append(out[2])
+        return out
+
+    fleet._megabatch_capped = recorded
+    try:
+        yield runs
+    finally:
+        fleet._megabatch_capped = capped
+
+
+def run_cli(argv):
+    """``ikflow-torch`` in-process on the card with the kernels' counts set to
+    0 just before. -> (stdout lines, K1 launches, K1' launches, seconds)."""
+    from ikflow_tpu_torch.cli.main import main as cli_main
+    from ikflow_tpu_torch.flow.fused_subnet import fused_mlp, fused_mlp_bf16
+
+    buf = io.StringIO()
+    fused_mlp.launches = 0
+    fused_mlp_bf16.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check(rc == 0, f"{argv[0]} returned {rc}")
+    return buf.getvalue().strip().splitlines(), fused_mlp.launches, fused_mlp_bf16.launches, seconds
+
+
+def quat_angle64(a, b):
+    """Angle between unit quaternions (float64 numpy), radians."""
+    a = a / np.linalg.norm(a, axis=-1, keepdims=True)
+    b = b / np.linalg.norm(b, axis=-1, keepdims=True)
+    return 2.0 * np.arccos(np.clip(np.abs((a * b).sum(-1)), 0.0, 1.0))
+
+
+def phase_fk_oracle(dev):
+    """17. The card's FK of every robot against the float64 C++ oracle on
+    N_ORACLE uniform samples: positions within FK_DATASET_POS, rotations
+    within FK_DATASET_ROT."""
+    from ikflow_tpu_torch.robots import get_robot, robot_names
+    from ikflow_tpu_torch.robots.native_oracle import NativeFkOracle
+
+    t0 = time.perf_counter()
+    robots = {}
+    for i, name in enumerate(robot_names()):
+        robot = get_robot(name)
+        q = robot.sample_joint_angles(N_ORACLE, torch.Generator(device=dev).manual_seed(20 + i))
+        pose = robot.forward_kinematics(q).double().cpu().numpy()
+        ref = NativeFkOracle(robot).forward_kinematics(q.double().cpu().numpy())
+        pos = float(np.linalg.norm(pose[:, :3] - ref[:, :3], axis=1).max())
+        rot = float(quat_angle64(pose[:, 3:], ref[:, 3:]).max())
+        check(pos <= FK_DATASET_POS and rot <= FK_DATASET_ROT,
+              f"{name}: the card's FK vs the float64 oracle: {pos} m, {rot} rad")
+        robots[name] = {"ndof": robot.ndof, "max_pos_err_m": pos, "max_rot_err_rad": rot}
+    emit("fk_oracle", t0, n=N_ORACLE, pos_bound_m=FK_DATASET_POS, rot_bound_rad=FK_DATASET_ROT, robots=robots)
+
+
+SOLVE_Q = re.compile(r"q=\[([^\]]*)\]\s+pos_err=([\d.]+)mm rot_err=([\d.]+)deg(?: jlim=(True|False) selfcol=(True|False))?$")
+
+
+def phase_cli_solve(robot, targets, hp):
+    """18. ``solve``: ``--exact -n 16`` on one reachable pose (every line
+    [ok], each rechecked in float64), then the detailed and ``--diverse``
+    forms (their lines parse, every solution inside the limits)."""
+    t0 = time.perf_counter()
+    pose = targets[0].cpu().numpy()
+    argv = ["solve", "--model_name", MODEL, "--pose", *[repr(float(v)) for v in pose], "-n", "16"]
+    low, high = robot.limits_low().double().numpy(), robot.limits_high().double().numpy()
+    lines, k1, k1b, exact_s = run_cli(argv + ["--exact"])
+    parsed = [re.fullmatch(r"\[(ok|FAIL)\] \[([^\]]*)\]", line) for line in lines]
+    check(len(lines) == 16 and all(parsed), f"solve --exact printed {lines}")
+    check(all(m.group(1) == "ok" for m in parsed), f"solve --exact: not every line is [ok]: {lines}")
+    sols = np.array([[float(v) for v in m.group(2).split()] for m in parsed])
+    pos64, rot64 = fk64_errors(robot, sols, np.tile(pose.astype(np.float64), (16, 1)))
+    # q is printed to 5 decimals: rounding moves the tip by at most 7 x 5e-6
+    # rad x 1.2 m (4.2e-5 m) and the hand by 3.5e-5 rad.
+    check(float(pos64.max()) <= 1e-3 + PRINTED_Q_SLACK_POS and float(rot64.max()) <= 0.1 + PRINTED_Q_SLACK_ROT,
+          f"solve --exact float64 recheck: {pos64.max()} m, {rot64.max()} rad")
+    check(k1 > 0 and k1 % (2 * hp.nb_nodes) == 0 and k1b == 0, f"solve --exact: K1 {k1}, K1' {k1b} launches")
+    forms = {"exact": {"seconds": exact_s, "k1_launches": k1, "fk64_max_pos_err_mm": 1e3 * float(pos64.max()),
+                       "fk64_max_rot_err_deg": float(np.degrees(rot64.max()))}}
+    for form, extra, n_lines in (("detailed", [], 16), ("diverse", ["--diverse", "--oversample", "4"], 17)):
+        lines, k1, k1b, sec = run_cli(argv + extra)
+        rows = [SOLVE_Q.fullmatch(line) for line in lines[:16]]
+        check(len(lines) == n_lines and all(rows), f"solve {form} printed {lines}")
+        if form == "detailed":
+            check(all(m.group(4) is not None for m in rows), f"solve: the detailed lines lack jlim/selfcol: {lines}")
+        else:
+            check(lines[-1].startswith("mean pairwise spread: "), f"solve --diverse: last line {lines[-1]}")
+        q = np.array([[float(v) for v in m.group(1).split()] for m in rows])
+        check(bool(((q >= low - 1e-5) & (q <= high + 1e-5)).all()), f"solve {form}: a solution outside the limits")
+        check(k1 == 2 * hp.nb_nodes and k1b == 0, f"solve {form}: K1 {k1}, K1' {k1b} launches")
+        forms[form] = {"seconds": sec, "k1_launches": k1,
+                       "mean_pos_err_mm": float(np.mean([float(m.group(2)) for m in rows]))}
+    emit("cli_solve", t0, pose=pose.tolist(), forms=forms)
+    return sum(f["k1_launches"] for f in forms.values())
+
+
+def parse_accuracy(lines):
+    """The accuracy and runtime lines of ``evaluate`` -> {name: value}."""
+    out = {}
+    for line in lines:
+        m = re.match(r"(mean_l2_error_mm|mean_angular_error_deg|pct_joint_limits_exceeded|pct_self_colliding|"
+                     r"mean_pairwise_dq_rad|exact-IK valid fraction|mean_runtime_ms_for_\d+_sols):\s*([-\d.]+)", line)
+        if m:
+            out[m.group(1)] = float(m.group(2))
+    return out
+
+
+def phase_cli_evaluate(hp, tmp):
+    """19. ``evaluate`` of the shipped weights at its defaults (500 poses x 50
+    samples: one inverse of 25000 rows), held to the JAX package's row of
+    model_performances.md; then ``--do_refinement``. -> (K1 launches, the
+    largest row count the refinement gave K1)."""
+    t0 = time.perf_counter()
+    argv = ["evaluate", "--model_name", MODEL, "--performances_file", os.path.join(tmp, "unused.md")]
+    with watch_inverses() as inverses:
+        lines, k1, k1b, sec = run_cli(argv)
+    acc = parse_accuracy(lines)
+    check(inverses.count((hp.nb_nodes, EVAL_ROWS)) == 1, f"evaluate's inverses: {sorted(set(inverses))}")
+    check(k1 == 2 * sum(b for b, _ in inverses) and k1b == 0, f"evaluate: K1 {k1}, K1' {k1b} launches")
+    for key, ref in EVAL_REFERENCE.items():
+        check(abs(acc[key] - ref) <= EVAL_REL_TOL * ref, f"evaluate {key} {acc[key]} vs the JAX package's {ref}")
+    check(acc["pct_joint_limits_exceeded"] == 0.0, f"evaluate: {acc['pct_joint_limits_exceeded']}% over the limits")
+    check(EVAL_SELF_COLLIDING[0] <= acc["pct_self_colliding"] <= EVAL_SELF_COLLIDING[1],
+          f"evaluate: {acc['pct_self_colliding']}% self-colliding")
+    plain = {"lines": lines, "seconds": sec, "k1_launches": k1, "inverse_rows": sorted({r for _, r in inverses})}
+    with watch_inverses() as inverses:
+        lines, k1_r, k1b, sec = run_cli(argv + ["--do_refinement"])
+    acc_r = parse_accuracy(lines)
+    check(acc_r["exact-IK valid fraction"] >= 0.99, f"evaluate --do_refinement: {lines}")
+    check(k1_r == 2 * sum(b for b, _ in inverses) and k1b == 0, f"refinement: K1 {k1_r}, K1' {k1b} launches")
+    refine_rows = max(r for _, r in inverses)
+    emit("cli_evaluate", t0, reference=EVAL_REFERENCE, rel_tol=EVAL_REL_TOL, self_colliding_band=EVAL_SELF_COLLIDING,
+         accuracy=acc, evaluate=plain, refinement={"lines": lines, "seconds": sec, "k1_launches": k1_r,
+                                                    "inverse_rows": sorted({r for _, r in inverses})})
+    return k1 + k1_r, refine_rows
+
+
+def phase_cli_evaluate_all(tmp):
+    """20. ``evaluate --all --uninitialized`` at 100 poses x 10 samples: a
+    row per registered architecture at its full width, every figure finite,
+    each row served from shipped weights near the JAX package's, K1
+    launched 2 x blocks times per inverse and K1' never. An architecture
+    whose weights file is absent (a copy that leaves it out) runs on random
+    weights."""
+    from ikflow_tpu_torch.registry import get_all_model_names, model_descriptions, resolve_weights_path
+
+    t0 = time.perf_counter()
+    table = os.path.join(tmp, "model_performances.md")
+    with watch_inverses() as inverses:
+        lines, k1, k1b, sec = run_cli(["evaluate", "--all", "--uninitialized", "--testset_size", "100",
+                                       "--n_samples_for_errors", "10", "--performances_file", table])
+    with open(table) as f:
+        text = f.read()
+    rows = {}
+    for line in text.splitlines():
+        cells = [c.strip() for c in line.strip("|").split("|")]
+        if line.startswith("| ") and cells[0] in get_all_model_names():
+            rows[cells[0]] = cells
+    check(len(rows) == 8, f"evaluate --all wrote {len(rows)} rows: {text}")
+    for name, cells in rows.items():
+        check(all(np.isfinite(float(c.split()[0])) for c in cells[2:8]), f"a non-finite figure in {cells}")
+    check(float(rows[MODEL][2]) <= 13.0, f"{MODEL}'s row is not from the shipped weights: {rows[MODEL]}")
+    shipped = sorted(n for n, e in model_descriptions().items() if os.path.exists(resolve_weights_path(e) or ""))
+    for name in shipped:
+        check(float(rows[name][2]) <= EVAL_ALL_L2_FACTOR * EVAL_ALL_L2_MM[name],
+              f"evaluate --all: {name} from its shipped weights reads {rows[name][2]} mm "
+              f"(JAX {EVAL_ALL_L2_MM[name]} mm)")
+    check(k1 == 2 * sum(b for b, _ in inverses) and k1b == 0,
+          f"evaluate --all: K1 {k1}, K1' {k1b} launches for {len(inverses)} inverses")
+    emit("cli_evaluate_all", t0, seconds_cli=sec, rows=rows, shipped_weights=shipped, inverses=len(inverses),
+         k1_launches=k1, k1_bf16_launches=k1b, header=text.splitlines()[4])
+    return k1
+
+
+def phase_kernel_vs_plain_models(close, rows_list, dev):
+    """21. K1 against its plain version at every distinct subnet shape of the
+    registered architectures (random weights), at ``rows_list``."""
+    from ikflow_tpu_torch.flow.fused_subnet import fused_mlp, fused_mlp_plain, prepare_tf32x3_subnet
+    from ikflow_tpu_torch.flow.model import build_flow
+    from ikflow_tpu_torch.flow.params import FlowHyperParams
+    from ikflow_tpu_torch.registry import get_all_model_names, model_descriptions
+    from ikflow_tpu_torch.robots import get_robot
+
+    t0 = time.perf_counter()
+    shapes = {}
+    for name in get_all_model_names():
+        entry = model_descriptions()[name]
+        flow = build_flow(FlowHyperParams.from_dict(entry), get_robot(entry["robot_name"]))
+        for blk in flow.param_shapes()[:1]:
+            for layers in blk.values():
+                dims = (layers[0]["w"][0],) + tuple(lay["w"][1] for lay in layers)
+                shapes.setdefault(dims, []).append(name)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    rows, max_err = [], 0.0
+    for dims in sorted(shapes):
+        layers = prepare_tf32x3_subnet([
+            {"w": (2 * torch.rand((dims[i], dims[i + 1]), generator=gen, device=dev) - 1) / dims[i] ** 0.5,
+             "b": (2 * torch.rand((dims[i + 1],), generator=gen, device=dev) - 1) / dims[i] ** 0.5}
+            for i in range(len(dims) - 1)])
+        for B in rows_list:
+            x = torch.randn((B, dims[0]), generator=gen, device=dev)
+            out_k, out_p = fused_mlp(x, layers), fused_mlp_plain(x, layers)
+            err = (out_k - out_p).abs()
+            check(bool(torch.isfinite(out_k).all()), f"non-finite K1 output at {dims}, B={B}")
+            fails = close(out_k, out_p)
+            check(not fails, f"K1 disagrees with plain at {dims}, B={B}: {fails}")
+            iters, reps, rounds = (5, 2, 5) if B >= 100000 else (10, 10, 10) if B >= 10000 else (20, 20, 20)
+            bounds = subnet_bound(B, layers)
+            flops = bounds.pop("flops")
+            ms, g_ms = cuda_ms(lambda: fused_mlp(x, layers), iters), graph_ms(lambda: fused_mlp(x, layers), reps, rounds)
+            row = {"B": B, "shape": [dims[0], dims[-1]], "models": shapes[dims], "max_abs_err": float(err.max()),
+                   "share_within_1e-5": float((err <= KERNEL_FP32_TIGHT).float().mean()), "ms": ms, "graph_ms": g_ms,
+                   "plain_ms": cuda_ms(lambda: fused_mlp_plain(x, layers), iters),
+                   "plain_graph_ms": graph_ms(lambda: fused_mlp_plain(x, layers), reps, rounds), **bounds,
+                   "kernel_tflops": flops / ms / 1e9, "roofline_share": bounds["bound_ms"] / ms,
+                   "graph_roofline_share": bounds["bound_ms"] / g_ms}
+            rows.append(row)
+            max_err = max(max_err, row["max_abs_err"])
+            del x, out_k, out_p, err
+    emit("kernel_vs_plain_models", t0, batches=list(rows_list), shapes=[list(d) for d in sorted(shapes)],
+         atol=KERNEL_ATOL, rtol=KERNEL_RTOL, tight=KERNEL_FP32_TIGHT, tight_share=KERNEL_FP32_TIGHT_SHARE, rows=rows)
+    return max_err
+
+
+def json_rows(lines):
+    return [json.loads(line) for line in lines if line.startswith("{")]
+
+
+def phase_cli_benchmark(hp):
+    """22. ``benchmark``: the runtime curve with --capacity probe, the
+    100000-pose megabatch (cold and warm legs), and --compare."""
+    t0 = time.perf_counter()
+    base = ["benchmark", "--model_name", MODEL]
+    lines, k1_curve, k1b, sec_curve = run_cli(base + ["--batch_sizes", "1", "10", "100", "1000", "--mode", "both",
+                                                      "--capacity", "probe"])
+    curve = json_rows(lines)
+    check(k1b == 0 and len(curve) == 8, f"benchmark curve: {lines}")
+    for row in curve:
+        if row["mode"] == "exact" and row["batch"] >= 100:
+            check(row["valid_fraction"] >= 0.99 and row["valid_fraction"] >= row["uncapped_valid_fraction"] - 0.005,
+                  f"benchmark exact row {row}")
+    with watch_megabatch() as runs:
+        lines, k1_mb, k1b, sec_mb = run_cli(base + ["--megabatch", str(N_MEGABATCH), "--capacity", "probe"])
+    mb = json_rows(lines)[-1]
+    check(mb["valid_fraction"] >= 0.99 and mb["warm_valid_fraction"] >= 0.99, f"benchmark --megabatch: {mb}")
+    check(len(runs) == 3 and runs[1][0]["kind"] == "probe" and all(c["kind"] != "probe" for c in runs[2]),
+          f"megabatch legs: {[[c['kind'] for c in r[:2]] for r in runs]}")
+    tiers_run = sum(1 + sum(1 for c in chunk["tier_counts"][:-1] if c < chunk["rows"]) for r in runs for chunk in r)
+    check(k1_mb == 2 * hp.nb_nodes * tiers_run and k1b == 0, f"megabatch: K1 {k1_mb} launches for {tiers_run} tiers")
+    progress = [line for line in lines if line.strip().startswith("megabatch:")]
+    lines, k1_cmp, k1b, sec_cmp = run_cli(base + ["--compare", "--batch_sizes", "1000"])
+    compare = json_rows(lines)
+    check([r["mode"] for r in compare] == ["flow_approx", "flow_plus_lm_exact", "native_lm_random_seed",
+                                          "native_lm_flow_seeded"] and k1b == 0, f"benchmark --compare: {lines}")
+    emit("cli_benchmark", t0, curve=curve, curve_seconds=sec_curve, megabatch=mb, megabatch_seconds=sec_mb,
+         megabatch_progress=progress[:6], megabatch_legs=[{"chunks": len(r), "kinds": sorted({c["kind"] for c in r}),
+                                                           "capacities": r[-1]["capacities"]} for r in runs],
+         compare=compare, compare_seconds=sec_cmp)
+    return k1_curve + k1_mb + k1_cmp
+
+
+def phase_cli_build_dataset(robot, dev, tmp):
+    """23. ``build-dataset`` of 100000 rows into a temporary dataset tree,
+    reloaded through ``load_dataset``: every row inside the margined limits,
+    free of self-collision, its pose equal to the card's FK."""
+    from ikflow_tpu_torch import config
+    from ikflow_tpu_torch.training.dataset import DEFAULT_JOINT_LIMIT_EPS, dataset_directory, load_dataset
+
+    t0 = time.perf_counter()
+    out_dir = dataset_directory("panda", (config.DATASET_TAG_NON_SELF_COLLIDING,))
+    lines, _, _, sec = run_cli(["build-dataset", "--robot_name", "panda", "--training_set_size", str(N_CLI_DATASET),
+                                "--output_dir", out_dir])
+    ds = load_dataset("panda")
+    check(ds.samples_tr.shape == (N_CLI_DATASET, robot.ndof) and ds.endpoints_tr.shape == (N_CLI_DATASET, 7),
+          f"reloaded train split {ds.samples_tr.shape}")
+    q = torch.from_numpy(np.concatenate([ds.samples_tr, ds.samples_te])).to(dev)
+    poses = torch.from_numpy(np.concatenate([ds.endpoints_tr, ds.endpoints_te])).to(dev)
+    eps = DEFAULT_JOINT_LIMIT_EPS
+    low, high = robot.limits_low(dev) + eps, robot.limits_high(dev) - eps
+    outside = int((~((q >= low - 1e-6) & (q <= high + 1e-6)).all(dim=1)).sum())
+    colliding = int(robot.config_self_collides(q).sum())
+    fk_gap = float((robot.forward_kinematics(q) - poses).abs().max())
+    check(outside == 0 and colliding == 0 and fk_gap <= FK_DATASET_POS,
+          f"build-dataset: {outside} rows outside the limits, {colliding} colliding, FK gap {fk_gap}")
+    emit("cli_build_dataset", t0, line=lines[-1], cli_seconds=sec, rows=int(q.shape[0]), rows_outside_limits=outside,
+         rows_self_colliding=colliding, card_fk_max_abs_gap=fk_gap)
+
+
+def cli_phases(hp, robot, targets, dev, close_fp32):
+    """17-23. The float64 oracle, then the serving command line in-process,
+    with every file under a temporary cache tree. -> (K1 launches over the
+    command-line phases, K1's max error in kernel_vs_plain_models)."""
+    from ikflow_tpu_torch import config
+
+    with tempfile.TemporaryDirectory(prefix="ikflow_chip_cli_") as tmp:
+        config.CACHE_DIR = os.path.join(tmp, "cache")
+        config.DATASET_DIR = os.path.join(config.CACHE_DIR, "datasets")
+        config.MODELS_DIR = os.path.join(config.CACHE_DIR, "models")  # empty: the shipped weights are found
+        config.TRAINING_LOGS_DIR = os.path.join(config.CACHE_DIR, "training_logs")
+        phase_fk_oracle(dev)
+        launches = phase_cli_solve(robot, targets, hp)
+        k1, refine_rows = phase_cli_evaluate(hp, tmp)
+        launches += k1 + phase_cli_evaluate_all(tmp)
+        max_err = phase_kernel_vs_plain_models(close_fp32, (1000, EVAL_ROWS, refine_rows), dev)
+        launches += phase_cli_benchmark(hp)
+        phase_cli_build_dataset(robot, dev, tmp)
+    return launches, max_err
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device available; this script runs on the GPU only")
@@ -691,20 +1074,25 @@ def main():
     from ikflow_tpu_torch.flow.model import build_flow
     from ikflow_tpu_torch.parallel.fleet import solve_exact_megabatch
     from ikflow_tpu_torch.registry import get_ik_solver
+    from ikflow_tpu_torch.robots import native_oracle
     from ikflow_tpu_torch.solver import IKFlowSolver
 
     t_all = time.perf_counter()
 
-    # Build: one nvcc per source, all started together, with their resource reports.
+    # Build: one nvcc per source and g++ for the float64 oracle, all started
+    # together, with the kernels' resource reports.
     t0 = time.perf_counter()
     names = ("fused_mlp", "fused_mlp_bf16")
-    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+    with concurrent.futures.ThreadPoolExecutor(len(names) + 1) as pool:
+        oracle = pool.submit(native_oracle.build)
         builds = dict(zip(names, pool.map(cuda_build.build, names)))
+        oracle_path = oracle.result()
     for res in builds.values():
         print(res.log.strip(), flush=True)
     resources = {n: ptxas_resources(r.log) for n, r in builds.items()}
     emit("build", t0, libraries={n: os.path.relpath(r.path, ROOT) for n, r in builds.items()},
-         nvcc_seconds={n: round(r.seconds, 3) for n, r in builds.items()}, resources=resources)
+         nvcc_seconds={n: round(r.seconds, 3) for n, r in builds.items()}, resources=resources,
+         oracle=os.path.relpath(oracle_path, ROOT))
 
     # 1. device
     t0 = time.perf_counter()
@@ -1034,19 +1422,25 @@ def main():
                                          torch.Generator(device=dev).manual_seed(5), close_bf16)
     emit("kernel_vs_plain_training", t0, batches=val_rows, rows=rows_t, rows_bf16=rows_tb)
 
+    # 17-23. The float64 oracle and the serving command line.
+    fused_mlp_bf16.launches = 0
+    cli_launches, max_err_m = cli_phases(hp, robot, targets, dev, close_fp32)
+    check(fused_mlp_bf16.launches == 0, f"the command-line phases ran K1' {fused_mlp_bf16.launches} times")
+
     print(json.dumps({"kernels": [
         kernel_entry("fused_mlp", "bf16_hidden=False: fp32 contract, hidden layers 3xTF32 on wgmma m64n128k8 "
                      "with packed tf32 hi/lo weight planes, 64-row tiles split over 8-CTA clusters, "
                      "a staging warpgroup, first/last layer fp32 FFMA",
-                     "ikflow_tpu_torch/csrc/fused_mlp.cu", main_path_launches, max(max_err, max_err_p, max_err_t), headline,
-                     training_launches["fused_mlp"]),
+                     "ikflow_tpu_torch/csrc/fused_mlp.cu", main_path_launches,
+                     max(max_err, max_err_p, max_err_t, max_err_m), headline, training_launches["fused_mlp"],
+                     cli_launches),
         kernel_entry("fused_mlp_bf16", "bf16_hidden=True: hidden layers bf16 on wgmma m64n128k16 with fp32 "
                      "accumulation, 64-row tiles split over 8-CTA clusters, weights packed once and streamed by "
                      "cp.async.bulk into a 4-slot mbarrier ring, activations pulled from the peers over DSMEM by a "
                      "staging warpgroup, two CTAs per SM, first/last layer fp32 FFMA",
                      "ikflow_tpu_torch/csrc/fused_mlp_bf16.cu", main_path_launches_bf16,
                      max(max_err_b, max_err_pb, max_err_tb),
-                     headline_b, training_launches["fused_mlp_bf16"]),
+                     headline_b, training_launches["fused_mlp_bf16"], 0),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"total_seconds": round(time.perf_counter() - t_all, 3)}), flush=True)

@@ -25,6 +25,12 @@ def pose_errors(poses_1: torch.Tensor, poses_2: torch.Tensor) -> Tuple[torch.Ten
     return l2, geodesic_distance(poses_1[..., 3:], poses_2[..., 3:])
 
 
+def pose_errors_cm_deg(poses_1: torch.Tensor, poses_2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``pose_errors`` in centimetres and degrees."""
+    l2, ang = pose_errors(poses_1, poses_2)
+    return 100.0 * l2, torch.rad2deg(ang)
+
+
 def solution_pose_errors(robot, solutions: torch.Tensor, target_poses: torch.Tensor):
     """FK-grade solutions against one (7,) target pose or (n, 7) targets."""
     if target_poses.ndim == 1:

@@ -177,20 +177,26 @@ def _bf16_numel(w: torch.Tensor) -> int:
     return _padded(w.shape[0]) * _padded(w.shape[1])
 
 
+def _contiguous(layer: Dict[str, torch.Tensor], **extra) -> Dict[str, torch.Tensor]:
+    return dict(layer, w=layer["w"].contiguous(), b=layer["b"].contiguous(), **extra)
+
+
 def prepare_tf32x3_subnet(layers: Sequence[Dict[str, torch.Tensor]]):
     """The subnet's layers with each hidden layer's packed tf32 hi/lo planes
     added under ``"wp"``: done once per parameter set, read by every K1
-    launch."""
+    launch. Weights and biases come back contiguous, as the kernel reads
+    them."""
     n = len(layers)
-    return [dict(layer, wp=pack_tf32x3_weight(layer["w"])) if 0 < i < n - 1 else layer
+    return [_contiguous(layer, wp=pack_tf32x3_weight(layer["w"])) if 0 < i < n - 1 else _contiguous(layer)
             for i, layer in enumerate(layers)]
 
 
 def prepare_bf16_subnet(layers: Sequence[Dict[str, torch.Tensor]]):
     """The subnet's layers with each hidden layer's packed bf16 weight added
-    under ``"wp"``: done once per parameter set, read by every K1' launch."""
+    under ``"wp"``: done once per parameter set, read by every K1' launch.
+    Weights and biases come back contiguous, as the kernel reads them."""
     n = len(layers)
-    return [dict(layer, wp=pack_bf16_weight(layer["w"])) if 0 < i < n - 1 else layer
+    return [_contiguous(layer, wp=pack_bf16_weight(layer["w"])) if 0 < i < n - 1 else _contiguous(layer)
             for i, layer in enumerate(layers)]
 
 

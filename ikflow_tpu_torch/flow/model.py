@@ -227,6 +227,10 @@ class GlowFlow:
         h, ld = self._head_inverse(h)
         return h, logdet + ld
 
+    def n_params(self, params) -> int:
+        """Parameter count of a parameter tuple (packed kernel copies not counted)."""
+        return sum(layer[k].numel() for block in params for s in ("s1", "s2") for layer in block[s] for k in ("w", "b"))
+
 
 def build_flow(hp: FlowHyperParams, robot, dim_cond: Optional[int] = None) -> GlowFlow:
     """The flow for ``robot``; ``dim_cond`` is 8 with softflow, else 7."""

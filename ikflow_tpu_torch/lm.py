@@ -10,6 +10,7 @@ from typing import Optional
 
 import torch
 
+from ikflow_tpu_torch.evaluation import solution_pose_errors
 from ikflow_tpu_torch.math.quaternion import quat_conjugate, quat_log_map, quat_mul
 
 
@@ -49,6 +50,13 @@ def pose_residual(pose: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     dp = target[..., :3] - pose[..., :3]
     omega = quat_log_map(quat_mul(target[..., 3:], quat_conjugate(pose[..., 3:])))
     return torch.cat([dp, omega], dim=-1)
+
+
+def config_pose_errors(robot, q: torch.Tensor, target_poses: torch.Tensor):
+    """(position L2 error, geodesic rotation error) of each configuration's
+    FK against its target: ``evaluation.solution_pose_errors``, named apart
+    from ``evaluation.pose_errors``, which compares two pose arrays."""
+    return solution_pose_errors(robot, q, target_poses)
 
 
 def _normal_equations(J: torch.Tensor, r: torch.Tensor):

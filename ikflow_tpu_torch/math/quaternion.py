@@ -36,6 +36,31 @@ def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     )
 
 
+def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate vector(s) v (..., 3) by quaternion(s) q (..., 4)."""
+    qvec, w = q[..., 1:], q[..., :1]
+    qvec, v = torch.broadcast_tensors(qvec, v)
+    t = 2.0 * torch.linalg.cross(qvec, v, dim=-1)
+    return v + w * t + torch.linalg.cross(qvec, t, dim=-1)
+
+
+def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion (..., 4) -> rotation matrix (..., 3, 3)."""
+    w, x, y, z = q.unbind(-1)
+    xx, yy, zz = x * x, y * y, z * z
+    wx, wy, wz = w * x, w * y, w * z
+    xy, xz, yz = x * y, x * z, y * z
+    m = torch.stack(
+        [
+            1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy),
+            2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx),
+            2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy),
+        ],
+        dim=-1,
+    )
+    return m.reshape(q.shape[:-1] + (3, 3))
+
+
 def quat_from_matrix(R: torch.Tensor) -> torch.Tensor:
     """Rotation matrix (..., 3, 3) -> unit quaternion (..., 4), w >= 0.
 
@@ -62,6 +87,12 @@ def quat_from_matrix(R: torch.Tensor) -> torch.Tensor:
     q = torch.where(best == 0, q_w, torch.where(best == 1, q_x, torch.where(best == 2, q_y, q_z)))
     q = quat_normalize(q)
     return torch.where(q[..., :1] < 0, -q, q)
+
+
+def quat_from_axis_angle(axis: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
+    """Unit axis (..., 3) and angle (...,) -> quaternion (..., 4)."""
+    half = 0.5 * angle
+    return torch.cat([torch.cos(half)[..., None], torch.sin(half)[..., None] * axis], dim=-1)
 
 
 def geodesic_distance(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:

@@ -9,7 +9,7 @@ file is a map of model names to flat maps of scalars.
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 from ikflow_tpu_torch import config
 from ikflow_tpu_torch.training.checkpoints import load_deploy
@@ -58,6 +58,11 @@ def parse_descriptions(text: str) -> Dict[str, Dict]:
 def model_descriptions() -> Dict[str, Dict]:
     with open(DESCRIPTIONS_PATH) as f:
         return parse_descriptions(f.read())
+
+
+def get_all_model_names() -> List[str]:
+    """Every registered model name, in the file's order."""
+    return list(model_descriptions())
 
 
 def resolve_weights_path(entry: Dict) -> Optional[str]:

@@ -18,7 +18,7 @@ valid, the port asks the host (one synchronisation per tier).
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -124,6 +124,10 @@ class IKFlowSolver:
         self._network_width = hyper_parameters.dim_latent_space
         self.ndof = robot.ndof
         self._weights_loaded = params is not None
+        self.weights_version = 0
+        # Retry capacities measured by parallel.fleet's "probe" policy, keyed
+        # by (weights_version, solve protocol): new weights miss every entry.
+        self.capacity_cache: Dict[tuple, tuple] = {}
         if params is None:
             params = self._flow.init(torch.Generator(device=self.device).manual_seed(seed))
         self.params = params
@@ -139,6 +143,7 @@ class IKFlowSolver:
         # rebuilt with every new parameter set, so it can never be stale.
         self._params = params
         self._kernel_params = self._flow.kernel_params(params)
+        self.weights_version += 1
 
     def set_params(self, params) -> None:
         """Install trained parameters and mark the weights loaded."""
@@ -154,8 +159,17 @@ class IKFlowSolver:
         return self._flow
 
     @property
+    def hyper_parameters(self) -> FlowHyperParams:
+        return self._hp
+
+    @property
     def network_width(self) -> int:
         return self._network_width
+
+    @property
+    def conditional_size(self) -> int:
+        """7 (the pose), or 8 with softflow's scale column, 0 at inference."""
+        return self.dim_cond
 
     def _check_loaded(self, allow_uninitialized: bool) -> None:
         if not (allow_uninitialized or self._weights_loaded):

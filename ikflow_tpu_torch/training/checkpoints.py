@@ -202,7 +202,10 @@ def export_deploy(
 
 
 def _to_tensor(arr: np.ndarray, device) -> torch.Tensor:
-    return torch.tensor(np.asarray(arr, dtype=np.float32), device=device)
+    """fp32 and in row-major order: some shipped artifacts store a layer's
+    weight in column-major order, which ``torch.tensor`` would keep as
+    strides, and the kernels read only contiguous tensors."""
+    return torch.tensor(np.ascontiguousarray(arr, dtype=np.float32), device=device)
 
 
 def load_deploy(path: str, param_shapes, device="cuda") -> Tuple[Any, Dict]:

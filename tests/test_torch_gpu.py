@@ -92,6 +92,25 @@ def test_kernel_matches_plain(cuda, B, dims):
         assert float((_plain_tf32(x, layers).double() - ref).abs().max()) > tol
 
 
+# Every distinct subnet shape of the eight registered architectures (D = 7, 8
+# or 10, softflow's conditional of 8 or the pose's 7), at the row counts the
+# serving command line gives K1: one pose, 1000, evaluate's 25000 and the
+# 250000 of its refinement's last tier.
+@pytest.mark.parametrize("B", [1, 1000, 25000, 250000])
+@pytest.mark.parametrize("io", [(10, 8), (11, 6), (11, 8), (12, 6), (12, 8), (13, 10)], ids=lambda io: f"{io[0]}to{io[1]}")
+def test_kernel_matches_float64_at_model_shapes(cuda, B, io):
+    dims = (io[0], 1024, 1024, 1024, io[1])
+    layers = prepare_tf32x3_subnet(_subnet(dims, cuda, seed=io[0] * 100 + io[1]))
+    x = torch.randn((B, dims[0]), generator=torch.Generator(device=cuda).manual_seed(2), device=cuda)
+    before = fused_mlp.launches
+    out = fused_mlp(x, layers)
+    torch.cuda.synchronize()
+    assert fused_mlp.launches == before + 1 and out.shape == (B, io[1])
+    ref = _float64(x, layers)
+    assert float((out.double() - ref).abs().max()) <= 1e-5 * max(1.0, float(ref.abs().max()))
+    torch.testing.assert_close(out, fused_mlp_plain(x, layers), atol=1e-4, rtol=1e-4)
+
+
 def test_kernel_refuses_what_it_does_not_take(cuda):
     layers = prepare_tf32x3_subnet(_subnet((10, 128, 128, 8), cuda, seed=0))
     with pytest.raises(ValueError):
