@@ -80,9 +80,30 @@ import faulthandler; faulthandler.dump_traceback_later(600, exit=True)  # noqa: 
 #     subnet shape of the eight architectures (inputs 10-13, outputs 6-10,
 #     random weights) at 1000, 25000 and the refinement's largest row count.
 #
-# Phases 13-15 and 17-23 write every file (cache, datasets, run directory,
-# checkpoints, the export, the performances table) under temporary
-# directories that are removed at the end.
+# 24. freia_import: the shipped weights written as a FrEIA state dict
+#     (``torch.save``), imported through ``training.torch_compat`` and served
+#     on the card (its inverse equal to the registry's, exact valid >= 0.99);
+# 25. mesh_solve: the 1000 poses unsharded, on [cuda:0] and on [cuda:0,
+#     cuda:0] (two replicas on the one card), fp32 and bf16: flow seeds within
+#     1e-5, valid shares >= 0.99 and within 0.002, float64 FK recheck; then
+#     kernel_vs_plain_mesh holds K1 and K1' to their plain versions at the
+#     per-shard row counts;
+# 26. mesh_megabatch: the 100000 poses over [cuda:0, cuda:0], compact and
+#     probe, each valid >= 0.99;
+# 27. train_data_parallel: 20 adamw steps of 512 at full width on [cuda:0,
+#     cuda:0] against the same steps unsharded (first-step gradients and the
+#     final parameters compared, ms per step), then ``train --data_parallel``;
+# 28. cli_scaling: ``benchmark --scaling`` and ``scaling_efficiency`` on
+#     [cuda:0, cuda:0]; two replicas on one card show the mechanics, not
+#     cross-card scaling;
+# 29. visualize_interactive: ``visualize --interactive`` for the four demos,
+#     their frames' capsule FK on the card against the CPU;
+# 30. examples: ``examples/torch_example.py`` and
+#     ``examples/torch_fleet_serving.py`` as processes on the card.
+#
+# Phases 13-15 and 17-30 write every file (cache, datasets, run directory,
+# checkpoints, the export, the performances table, the HTML scenes) under
+# temporary directories that are removed at the end.
 #
 # A kernel's ``ms`` (and ``plain_ms``, ``k1_ms``, ``cold_l2_ms``) is time per
 # call with the calls launched one by one from Python between CUDA events, as
@@ -195,6 +216,27 @@ EVAL_ALL_L2_MM = {
 }
 EVAL_ALL_L2_FACTOR = 2.0
 N_CLI_DATASET = 100_000
+# Several devices (phases 24-30): two replicas on the one card, [cuda:0, cuda:0].
+MESH_SEED_ATOL = 1e-5  # flow seeds unsharded vs sharded, radians: the kernels compute each row alike at any row count
+MESH_SHARE_GAP = 0.002  # valid shares of the unsharded and sharded exact solves
+DP_POOL, DP_BATCH, DP_STEPS = 20_000, 512, 20
+# The data-parallel step against the unsharded one, relative L2 over every
+# parameter. cuBLAS runs other kernels on half-batches, and the 12 exp-affine
+# couplings amplify their fp32 rounding (8.0e-5 on the first step's gradients
+# at random weights, H100 80GB HBM3 at 700 W, against 3.1e-7 for the same
+# rows in another order); against the unsharded gradients of the two halves,
+# combined as the mesh combines them, the gap is rounding of the sum alone
+# (DP_HALVES_REL). A wrong reduction (one shard, or a sum for the mean) reads
+# 0.5 or more. After DP_STEPS adamw steps: adamw's first step moves each
+# weight by lr * sign(g), so a weight whose gradient is within rounding of
+# zero steps +lr or -lr on the two paths (1.3e-4, against 7.1e-5 for the
+# rows in another order).
+DP_GRAD_REL = 1e-3
+DP_HALVES_REL = 1e-5
+DP_PARAM_REL = 1e-3
+VIZ_FRAMES = 24
+VIZ_FK_ATOL = 1e-5  # capsule end points, metres: fp32 FK on the card vs the CPU
+EXAMPLES_TIMEOUT_S = 300
 MATMUL_KERNEL = re.compile(r"gemm|cutlass|xmma|matmul|fused_mlp", re.IGNORECASE)
 
 
@@ -597,7 +639,8 @@ def kernel_rows(kernel, plain, bound, params, batches, gen, close, contrast=None
     return rows, max_err, headline
 
 
-def kernel_entry(name, specialization, source, launches, max_err, headline, training_launches, cli_launches):
+def kernel_entry(name, specialization, source, launches, max_err, headline, training_launches, cli_launches,
+                 mesh_launches):
     return {
         "name": name,
         "specialization": specialization,
@@ -614,6 +657,7 @@ def kernel_entry(name, specialization, source, launches, max_err, headline, trai
         "at": {"B": headline["B"], "subnet": headline["subnet"]},
         "training_launches": training_launches,
         "cli_launches": cli_launches,
+        "mesh_launches": mesh_launches,
     }
 
 
@@ -1037,6 +1081,387 @@ def phase_cli_build_dataset(robot, dev, tmp):
          rows_self_colliding=colliding, card_fk_max_abs_gap=fk_gap)
 
 
+def _count_reset():
+    from ikflow_tpu_torch.flow.fused_subnet import fused_mlp, fused_mlp_bf16
+
+    torch.cuda.synchronize()
+    fused_mlp.launches = 0
+    fused_mlp_bf16.launches = 0
+
+
+def _counts():
+    """(K1, K1') launches since ``_count_reset``, after the card's queue drains."""
+    from ikflow_tpu_torch.flow.fused_subnet import fused_mlp, fused_mlp_bf16
+
+    torch.cuda.synchronize()
+    return fused_mlp.launches, fused_mlp_bf16.launches
+
+
+def phase_freia_import(hp, solver, targets, exact_kw, dev, tmp):
+    """24. The shipped weights written as a FrEIA GraphINN state dict
+    (``torch.save``; weights (out, in)), imported through
+    ``load_reference_pickle`` + ``import_reference_state_dict`` and served on
+    the card: its inverse equal to the registry-loaded solver's on the same
+    latents, its exact solve valid >= 0.99. -> K1 launches."""
+    from ikflow_tpu_torch.solver import IKFlowSolver
+    from ikflow_tpu_torch.training.torch_compat import import_reference_state_dict, load_reference_pickle
+
+    t0 = time.perf_counter()
+    state = {}
+    for bi, blk in enumerate(solver.params):
+        state[f"module_list.{1 + 2 * bi}.perm"] = torch.as_tensor(solver.flow._perms[bi])
+        for sub, ours in (("1", "s1"), ("2", "s2")):
+            for li, lay in enumerate(blk[ours]):
+                state[f"module_list.{2 + 2 * bi}.subnet{sub}.{2 * li}.weight"] = lay["w"].T.contiguous().cpu()
+                state[f"module_list.{2 + 2 * bi}.subnet{sub}.{2 * li}.bias"] = lay["b"].cpu()
+    path = os.path.join(tmp, "freia_state_dict.pt")
+    torch.save(state, path)
+    params = import_reference_state_dict(load_reference_pickle(path), solver.flow, solver.params)
+    imported = IKFlowSolver(hp, solver.robot, params=params, device=dev)
+    z = torch.randn((N_POSES, hp.dim_latent_space), generator=torch.Generator(device=dev).manual_seed(9), device=dev)
+    q_ref, _ = solver.flow.inverse(solver._kernel_params, z, targets)
+    _count_reset()
+    q_imp, _ = imported.flow.inverse(imported._kernel_params, z, targets)
+    sols, valids, tier_counts = imported.generate_exact_ik_solutions(
+        targets, generator=torch.Generator(device=dev).manual_seed(44), **exact_kw)
+    k1, k1b = _counts()
+    tiers = [int(c) for c in tier_counts.cpu()]
+    tiers_run = 1 + sum(1 for c in tiers[:-1] if c < N_POSES)
+    inverse_gap = float((q_imp - q_ref).abs().max())
+    check(inverse_gap == 0.0, f"the imported flow's inverse differs from the registry's by {inverse_gap}")
+    check(k1 == 2 * hp.nb_nodes * (1 + tiers_run) and k1b == 0, f"freia_import ran K1 {k1}, K1' {k1b} times")
+    summary = check_solutions(solver.robot, sols.cpu().numpy(), valids.cpu().numpy(), targets.cpu().numpy(), 0.99,
+                              0.01)
+    emit("freia_import", t0, state_dict_keys=len(state), file_bytes=os.path.getsize(path),
+         inverse_max_abs_diff=inverse_gap, exact=summary, tier_counts=tiers, kernel_launches=k1)
+    return k1
+
+
+def phase_mesh_solve(hp, solvers, targets, exact_kw, dev, kernels):
+    """25. The 1000 poses solved unsharded, on the mesh [cuda:0] and on
+    [cuda:0, cuda:0], through the fp32 and the bf16 solver: the flow seeds
+    (0 LM steps) of the three within MESH_SEED_ATOL, each exact solve valid
+    >= 0.99 under the float64 FK recheck, the valid shares within
+    MESH_SHARE_GAP. -> ({solver: launches on the 2-entry mesh}, {solver:
+    the per-shard row counts its kernel ran at})."""
+    from ikflow_tpu_torch.parallel.fleet import solve_exact_sharded
+    from ikflow_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    meshes = {"mesh1": make_mesh([dev]), "mesh2": make_mesh([dev, dev])}
+    seed_kw = dict(repeat_counts=(1,), n_opt_steps_max=0, pos_error_threshold=1e-3, rot_error_threshold=0.01)
+    launches, shard_rows, report = {}, {}, {}
+    for name, slv in solvers.items():
+        kernel, other = kernels[name]
+        out = {}
+        for way in ("unsharded", "mesh1", "mesh2"):
+            def solve(kw, seed, way=way):
+                g = torch.Generator(device=dev).manual_seed(seed)
+                if way == "unsharded":
+                    return slv.generate_exact_ik_solutions(targets, generator=g, **kw)
+                return solve_exact_sharded(slv, targets, meshes[way], generator=g, **kw)
+
+            seeds, _ = solve(seed_kw, 45)
+            _count_reset()
+            t1 = time.perf_counter()
+            with watch_inverses() as inverses:
+                sols, valids, tier_counts = solve(exact_kw, 46)
+            launch = _counts()
+            wall = time.perf_counter() - t1
+            tiers = [int(c) for c in tier_counts.cpu()]
+            tiers_run = 1 + sum(1 for c in tiers[:-1] if c < N_POSES)
+            shards = 2 if way == "mesh2" else 1
+            check(kernel.launches == 2 * hp.nb_nodes * tiers_run * shards and other.launches == 0,
+                  f"{name} {way}: (K1, K1') launches {launch} for {tiers_run} tiers on {shards} shard(s)")
+            summary = check_solutions(slv.robot, sols.cpu().numpy(), valids.cpu().numpy(), targets.cpu().numpy(),
+                                      0.99, 0.01)
+            out[way] = {"seeds": seeds, **summary, "tier_counts": tiers, "wall_s": wall,
+                        "kernel_launches": kernel.launches, "inverse_rows": [r for _, r in inverses]}
+            if way == "mesh2":
+                launches[name] = kernel.launches
+                shard_rows[name] = sorted({r for _, r in inverses})
+        seed_gap = max(float((out[w]["seeds"] - out["unsharded"]["seeds"]).abs().max()) for w in ("mesh1", "mesh2"))
+        shares = [out[w]["valid_fraction"] for w in out]
+        check(seed_gap <= MESH_SEED_ATOL, f"{name}: flow seeds on the meshes differ by {seed_gap}")
+        check(max(shares) - min(shares) <= MESH_SHARE_GAP, f"{name}: valid shares {shares}")
+        report[name] = {"seed_max_abs_diff": seed_gap,
+                        **{w: {k: v for k, v in o.items() if k != "seeds"} for w, o in out.items()}}
+    emit("mesh_solve", t0, n=N_POSES, seed_atol=MESH_SEED_ATOL, share_gap=MESH_SHARE_GAP, **report)
+    return launches, shard_rows
+
+
+def phase_mesh_megabatch(hp, solver, targets_mb, dev):
+    """26. The 100000 poses streamed over [cuda:0, cuda:0] with the compact
+    and the probe policy: each valid >= 0.99 under the float64 FK recheck, K1
+    launched once per shard and subnet of every tier run. -> K1 launches."""
+    from ikflow_tpu_torch.parallel.fleet import solve_exact_megabatch
+    from ikflow_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    mesh = make_mesh([dev, dev])
+    total, report = 0, {}
+    for policy in ("compact", "probe"):
+        _count_reset()
+        t1 = time.perf_counter()
+        with watch_megabatch() as runs:
+            sols, valids, stats = solve_exact_megabatch(solver, targets_mb, mesh=mesh, seed=1, retry_capacities=policy,
+                                                        capacity_cache=False, pos_error_threshold=1e-3,
+                                                        rot_error_threshold=0.01, return_stats=True)
+        k1, k1b = _counts()
+        wall = time.perf_counter() - t1
+        if policy == "compact":
+            tier_runs = sum(t["chunks"] for t in stats)
+        else:
+            tier_runs = sum(1 + sum(1 for c in chunk["tier_counts"][:-1] if c < chunk["rows"]) for chunk in runs[0])
+        check(k1 == 2 * 2 * hp.nb_nodes * tier_runs and k1b == 0,
+              f"mesh megabatch {policy}: K1 {k1} launches for {tier_runs} sharded tier runs, K1' {k1b}")
+        summary = check_solutions(solver.robot, sols, valids, targets_mb, 0.99, 0.01)
+        report[policy] = {**summary, "wall_s": wall, "sols_per_s": N_MEGABATCH / wall, "kernel_launches": k1,
+                          "sharded_tier_runs": tier_runs,
+                          "chunks": len(stats) if policy != "compact" else [t["chunks"] for t in stats]}
+        total += k1
+    emit("mesh_megabatch", t0, n=N_MEGABATCH, mesh=[str(d) for d in mesh.devices], **report)
+    return total
+
+
+def phase_train_data_parallel(hp, robot, dev, tmp):
+    """27. DP_STEPS adamw steps of batch DP_BATCH at full width from random
+    weights on [cuda:0, cuda:0] and unsharded, on the same batches and the
+    same injected noise: the first step's gradients and the parameters after
+    the last step compared, ms per step of each; then ``train
+    --data_parallel`` for a few steps (one card: a mesh of 1 device)."""
+    from ikflow_tpu_torch.flow.model import build_flow
+    from ikflow_tpu_torch.parallel.mesh import make_mesh
+    from ikflow_tpu_torch.training import TrainConfig, Trainer
+    from ikflow_tpu_torch.training.common import tree_leaves
+
+    t0 = time.perf_counter()
+    flow = build_flow(hp, robot)
+    params = flow.init(torch.Generator(device=dev).manual_seed(0))
+    g = torch.Generator(device=dev).manual_seed(12)
+    pool_q = robot.sample_joint_angles(DP_POOL, g, joint_limit_eps=0.004363)
+    pool_poses = robot.forward_kinematics(pool_q)
+    idx = [torch.randint(0, DP_POOL, (DP_BATCH,), generator=g, device=dev) for _ in range(DP_STEPS)]
+    runs = {}
+    # "reordered": unsharded on each batch's rows in reverse order, the same
+    # mean gradient summed in another order: the witness of fp32 rounding.
+    for name, mesh, order in (("unsharded", None, idx), ("mesh2", make_mesh([dev, dev]), idx),
+                              ("reordered", None, [i.flip(0) for i in idx])):
+        trainer = Trainer(flow, robot, TrainConfig(batch_size=DP_BATCH, learning_rate=1e-4), device=dev, mesh=mesh)
+        p, optimizer, _ = trainer._start(params, None, 0)
+        q0 = pool_q[order[0]]
+        _, _, first_grads = trainer.loss_and_grads(
+            p, optimizer.params, q0, pool_poses[order[0]],
+            noise=trainer.loss_fn.draw(q0, torch.Generator(device=dev).manual_seed(14)))
+        ng = torch.Generator(device=dev).manual_seed(13)
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(DP_STEPS + 1)]
+        losses = []
+        torch.cuda.synchronize()
+        events[0].record()
+        for i in range(DP_STEPS):
+            q, poses = pool_q[order[i]], pool_poses[order[i]]
+            losses.append(trainer._step(p, optimizer, q, poses, noise=trainer.loss_fn.draw(q, ng),
+                                        with_metrics=False)["tr/loss"])
+            events[i + 1].record()
+        torch.cuda.synchronize()
+        step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(DP_STEPS)]
+        runs[name] = {"leaves": [t.detach() for t in tree_leaves(p)], "grads": first_grads,
+                      "losses": torch.stack(losses).cpu().tolist(), "ms_per_step_median": float(np.median(step_ms[1:])),
+                      "ms_per_step": step_ms}
+    a, b, w = runs["unsharded"], runs["mesh2"], runs["reordered"]
+    # "halves": the unsharded step's gradient of each half-batch, combined as
+    # the mesh combines them: the same arithmetic on one entry.
+    trainer = Trainer(flow, robot, TrainConfig(batch_size=DP_BATCH), device=dev)
+    p, optimizer, _ = trainer._start(params, None, 0)
+    q0, poses0 = pool_q[idx[0]], pool_poses[idx[0]]
+    noise0 = trainer.loss_fn.draw(q0, torch.Generator(device=dev).manual_seed(14))
+    half = DP_BATCH // 2
+    halves = [trainer.loss_and_grads(p, optimizer.params, q0[sl], poses0[sl],
+                                     noise=tuple(None if t is None else t[sl] for t in noise0))[2]
+              for sl in (slice(0, half), slice(half, DP_BATCH))]
+    halves = [0.5 * (x + y) for x, y in zip(*halves)]
+
+    def rel_l2(xs, ys):
+        num = sum(float(((x - y).double() ** 2).sum()) for x, y in zip(xs, ys))
+        return (num / sum(float((x.double() ** 2).sum()) for x in xs)) ** 0.5
+
+    grad_rel, grad_rel_witness = rel_l2(a["grads"], b["grads"]), rel_l2(a["grads"], w["grads"])
+    grad_rel_halves = rel_l2(halves, b["grads"])
+    param_rel, param_rel_witness = rel_l2(a["leaves"], b["leaves"]), rel_l2(a["leaves"], w["leaves"])
+    param_max = max(float((x - y).abs().max()) for x, y in zip(a["leaves"], b["leaves"]))
+    check(grad_rel <= DP_GRAD_REL, f"first-step gradients: relative L2 gap {grad_rel} > {DP_GRAD_REL} "
+          f"(reordered witness {grad_rel_witness})")
+    check(grad_rel_halves <= DP_HALVES_REL, f"first-step gradients vs the unsharded halves: {grad_rel_halves}")
+    check(param_rel <= DP_PARAM_REL, f"parameters after {DP_STEPS} steps: relative L2 gap {param_rel} > {DP_PARAM_REL} "
+          f"(reordered witness {param_rel_witness})")
+    for run in (a, b):
+        first, last = np.mean(run["losses"][:5]), np.mean(run["losses"][-5:])
+        check(np.isfinite(run["losses"]).all() and last < first, f"the loss did not fall: {run['losses']}")
+    # The command: one card, so a mesh of one device.
+    argv = ["train", "--robot_name", "panda", "--data_parallel", "--nb_nodes", str(hp.nb_nodes),
+            "--dim_latent_space", str(hp.dim_latent_space), "--coeff_fn_config", str(hp.coeff_fn_config),
+            "--coeff_fn_internal_size", str(hp.coeff_fn_internal_size), "--disable_softflow", "--sigmoid_on_output",
+            "--n_steps", "5", "--log_every", "1", "--eval_every", "0", "--checkpoint_every", "0",
+            "--dataset_size", "20000", "--dataset_tags", "chip-data-parallel", "--run_dir", os.path.join(tmp, "run_dp")]
+    lines, k1, k1b, cli_s = run_cli(argv)
+    check("data-parallel over 1 devices" in lines and any(x.startswith("trained 5 steps (0 -> 5)") for x in lines),
+          f"train --data_parallel printed {lines}")
+    emit("train_data_parallel", t0, steps=DP_STEPS, batch=DP_BATCH, mesh=[str(dev)] * 2,
+         first_step_grad_rel_l2=grad_rel, grad_rel_bound=DP_GRAD_REL, reordered_grad_rel_l2=grad_rel_witness,
+         halves_grad_rel_l2=grad_rel_halves, halves_rel_bound=DP_HALVES_REL,
+         param_rel_l2=param_rel, param_rel_bound=DP_PARAM_REL, reordered_param_rel_l2=param_rel_witness,
+         param_max_abs_diff=param_max,
+         **{name: {k: v for k, v in r.items() if k not in ("leaves", "grads")} for name, r in runs.items()},
+         cli_lines=[x for x in lines if "data-parallel" in x or x.startswith("trained")], cli_seconds=cli_s)
+
+
+def phase_cli_scaling(solver, dev):
+    """28. ``benchmark --scaling`` (rows for 1 device and all, one card
+    here) and ``scaling_efficiency`` on [cuda:0, cuda:0]: finite rows, every
+    timed solve valid >= 0.99. Two replicas on one card share its SMs: the
+    rows show the mechanics, not cross-card scaling. -> K1 launches."""
+    from ikflow_tpu_torch.parallel import fleet
+
+    t0 = time.perf_counter()
+    shares, sharded = [], fleet.solve_exact_sharded
+
+    def recorded(*args, **kwargs):
+        out = sharded(*args, **kwargs)
+        shares.append(float(out[1].float().mean()))
+        return out
+
+    fleet.solve_exact_sharded = recorded
+    try:
+        lines, k1_cli, _, sec = run_cli(["benchmark", "--model_name", MODEL, "--scaling", "--batch_sizes",
+                                         str(N_POSES)])
+        cli_shares = list(shares)
+        _count_reset()
+        rows = fleet.scaling_efficiency(solver, n_poses=N_POSES, devices=[dev, dev], reps=3,
+                                        generator=torch.Generator(device=dev).manual_seed(15),
+                                        pos_error_threshold=1e-3, rot_error_threshold=0.01)
+        k1, _ = _counts()
+    finally:
+        fleet.solve_exact_sharded = sharded
+    cli_rows = json_rows(lines)
+    check([r["devices"] for r in cli_rows] == [1, torch.cuda.device_count()], f"benchmark --scaling rows {cli_rows}")
+    check([r["devices"] for r in rows] == [1, 2], f"scaling_efficiency rows {rows}")
+    for r in cli_rows + rows:
+        check(all(np.isfinite(r[k]) and r[k] > 0 for k in ("seconds", "sols_per_s", "efficiency")), f"row {r}")
+    check(min(shares) >= 0.99, f"a timed solve's valid share is under 0.99: {shares}")
+    emit("cli_scaling", t0, caveat="two replicas on one card share its SMs: these rows show the mechanics of the "
+         "mesh, not cross-card scaling", benchmark_rows=cli_rows, benchmark_seconds=sec,
+         benchmark_valid_shares=cli_shares, replica_rows=rows, replica_valid_shares=shares[len(cli_shares):])
+    return k1_cli + k1
+
+
+def phase_visualize_interactive(hp, solver, dev, tmp):
+    """29. ``visualize --interactive`` for every demo: each HTML file holds
+    its frames, and the card's capsule FK of the frames' configurations
+    equals the CPU's within VIZ_FK_ATOL. -> K1 launches."""
+    from ikflow_tpu_torch.visualization import demo_target_pose
+
+    t0 = time.perf_counter()
+    robot, files, launches = solver.robot, {}, 0
+    for demo, frames in (("visualize_fk", 5), ("oscillate_latent", VIZ_FRAMES), ("oscillate_target", VIZ_FRAMES),
+                         ("oscillate_joints", VIZ_FRAMES)):
+        out = os.path.join(tmp, f"{demo}.html")
+        lines, k1, _, sec = run_cli(["visualize", "--model_name", MODEL, "--demo_name", demo, "--interactive",
+                                     "--n_frames", str(VIZ_FRAMES), "--output", out])
+        with open(out) as f:
+            payload = json.loads(re.search(r"const DATA = (\{.*?\});\n", f.read()).group(1))
+        n_sols = {len(fr["sols"]) for fr in payload["frames"]}
+        check(lines == [f"wrote {out}"] and len(payload["frames"]) == frames and n_sols == {6 if demo ==
+              "oscillate_target" else 1}, f"{demo}: {lines}, {len(payload['frames'])} frames of {n_sols}")
+        check(k1 == (2 * hp.nb_nodes if demo in ("oscillate_latent", "oscillate_target") else 0),
+              f"{demo} ran K1 {k1} times")
+        launches += k1
+        files[demo] = {"bytes": os.path.getsize(out), "frames": len(payload["frames"]), "seconds": sec,
+                       "kernel_launches": k1}
+    # The frames' FK on the card against the CPU: the joint sweep and the latent sweep.
+    ts = np.linspace(0, 2 * np.pi, VIZ_FRAMES, endpoint=False)
+    low, high = robot.limits_low().numpy(), robot.limits_high().numpy()
+    q_joints = torch.as_tensor(0.5 * (low + high) + 0.5 * (high - low) * np.sin(
+        ts[:, None] + 2 * np.pi * np.arange(robot.ndof) / robot.ndof), dtype=torch.float32, device=dev)
+    latents = np.zeros((VIZ_FRAMES, hp.dim_latent_space), dtype=np.float32)
+    latents[:, 0], latents[:, 1] = 1.2 * np.cos(ts), 1.2 * np.sin(ts)
+    q_latent = solver.generate_ik_solutions(np.tile(demo_target_pose(robot.name).astype(np.float32), (VIZ_FRAMES, 1)),
+                                            latent=latents)
+    gaps = {name: float((robot.capsule_endpoints(q).cpu() - robot.capsule_endpoints(q.cpu())).abs().max())
+            for name, q in (("oscillate_joints", q_joints), ("oscillate_latent", q_latent))}
+    check(max(gaps.values()) <= VIZ_FK_ATOL, f"capsule FK on the card vs the CPU: {gaps}")
+    emit("visualize_interactive", t0, files=files, card_vs_cpu_capsule_fk_max_abs_diff=gaps, atol=VIZ_FK_ATOL)
+    return launches
+
+
+def phase_examples(tmp):
+    """30. Both examples of the port as processes on the card, side by side,
+    with the shipped weights of panda__full__sigmoid; the fleet example on
+    the mesh [cuda:0, cuda:0]."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, IKFLOW_TPU_CACHE_DIR=os.path.join(tmp, "cache"))
+    cmds = {
+        "torch_example": [sys.executable, os.path.join(ROOT, "examples", "torch_example.py"), "--model_name", MODEL],
+        "torch_fleet_serving": [sys.executable, os.path.join(ROOT, "examples", "torch_fleet_serving.py"),
+                                "--model_name", MODEL, "--devices", "cuda:0,cuda:0", "--n", str(N_POSES)],
+    }
+    procs = {name: subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+             for name, cmd in cmds.items()}
+    report = {}
+    try:
+        for name, p in procs.items():
+            out, _ = p.communicate(timeout=EXAMPLES_TIMEOUT_S)
+            report[name] = {"returncode": p.returncode, "tail": out.strip().splitlines()[-4:]}
+            check(p.returncode == 0, f"{name} exited {p.returncode}:\n{out}")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    check(any(line.startswith("exact IK: ") for line in report["torch_example"]["tail"]),
+          f"torch_example: {report['torch_example']}")
+    emit("examples", t0, **report)
+
+
+def multi_device_phases(hp, solver, solver_bf16, targets, targets_mb, exact_kw, dev, close_fp32, close_bf16):
+    """24-30. The FrEIA import, the mesh (solve, megabatch, data-parallel
+    training, scaling), visualize and the examples, with every file under a
+    temporary cache tree. -> ({kernel: launches on these paths}, K1's and
+    K1''s max error at the per-shard row counts)."""
+    from ikflow_tpu_torch import config
+    from ikflow_tpu_torch.flow.fused_subnet import fused_mlp, fused_mlp_bf16, fused_mlp_bf16_plain, fused_mlp_plain
+
+    t_all = time.perf_counter()
+    launches = {"fused_mlp": 0, "fused_mlp_bf16": 0}
+    with tempfile.TemporaryDirectory(prefix="ikflow_chip_mesh_") as tmp:
+        config.CACHE_DIR = os.path.join(tmp, "cache")
+        config.DATASET_DIR = os.path.join(config.CACHE_DIR, "datasets")
+        config.MODELS_DIR = os.path.join(config.CACHE_DIR, "models")
+        config.TRAINING_LOGS_DIR = os.path.join(config.CACHE_DIR, "training_logs")
+        launches["fused_mlp"] += phase_freia_import(hp, solver, targets, exact_kw, dev, tmp)
+        mesh_launches, shard_rows = phase_mesh_solve(
+            hp, {"fp32": solver, "bf16": solver_bf16}, targets, exact_kw, dev,
+            {"fp32": (fused_mlp, fused_mlp_bf16), "bf16": (fused_mlp_bf16, fused_mlp)})
+        launches["fused_mlp"] += mesh_launches["fp32"]
+        launches["fused_mlp_bf16"] += mesh_launches["bf16"]
+        # K1 and K1' against their plain versions at the per-shard row counts.
+        t0 = time.perf_counter()
+        rows_m, max_err_m, _ = kernel_rows(fused_mlp, fused_mlp_plain, subnet_bound, solver._kernel_params,
+                                           shard_rows["fp32"], torch.Generator(device=dev).manual_seed(16), close_fp32)
+        rows_mb, max_err_mb, _ = kernel_rows(fused_mlp_bf16, fused_mlp_bf16_plain, subnet_bound_bf16,
+                                             solver_bf16._kernel_params, shard_rows["bf16"],
+                                             torch.Generator(device=dev).manual_seed(17), close_bf16)
+        emit("kernel_vs_plain_mesh", t0, batches=shard_rows["fp32"], rows=rows_m, batches_bf16=shard_rows["bf16"],
+             rows_bf16=rows_mb)
+        launches["fused_mlp"] += phase_mesh_megabatch(hp, solver, targets_mb, dev)
+        phase_train_data_parallel(hp, solver.robot, dev, tmp)
+        launches["fused_mlp"] += phase_cli_scaling(solver, dev)
+        launches["fused_mlp"] += phase_visualize_interactive(hp, solver, dev, tmp)
+        phase_examples(tmp)
+    seconds = time.perf_counter() - t_all
+    print(json.dumps({"multi_device_phases_seconds": round(seconds, 3)}), flush=True)
+    return launches, max_err_m, max_err_mb
+
+
 def cli_phases(hp, robot, targets, dev, close_fp32):
     """17-23. The float64 oracle, then the serving command line in-process,
     with every file under a temporary cache tree. -> (K1 launches over the
@@ -1427,20 +1852,24 @@ def main():
     cli_launches, max_err_m = cli_phases(hp, robot, targets, dev, close_fp32)
     check(fused_mlp_bf16.launches == 0, f"the command-line phases ran K1' {fused_mlp_bf16.launches} times")
 
+    # 24-30. Several devices, the FrEIA import, visualize and the examples.
+    mesh_launches, max_err_mesh, max_err_mesh_b = multi_device_phases(
+        hp, solver, solver_bf16, targets, targets_mb, exact_kw, dev, close_fp32, close_bf16)
+
     print(json.dumps({"kernels": [
         kernel_entry("fused_mlp", "bf16_hidden=False: fp32 contract, hidden layers 3xTF32 on wgmma m64n128k8 "
                      "with packed tf32 hi/lo weight planes, 64-row tiles split over 8-CTA clusters, "
                      "a staging warpgroup, first/last layer fp32 FFMA",
                      "ikflow_tpu_torch/csrc/fused_mlp.cu", main_path_launches,
-                     max(max_err, max_err_p, max_err_t, max_err_m), headline, training_launches["fused_mlp"],
-                     cli_launches),
+                     max(max_err, max_err_p, max_err_t, max_err_m, max_err_mesh), headline,
+                     training_launches["fused_mlp"], cli_launches, mesh_launches["fused_mlp"]),
         kernel_entry("fused_mlp_bf16", "bf16_hidden=True: hidden layers bf16 on wgmma m64n128k16 with fp32 "
                      "accumulation, 64-row tiles split over 8-CTA clusters, weights packed once and streamed by "
                      "cp.async.bulk into a 4-slot mbarrier ring, activations pulled from the peers over DSMEM by a "
                      "staging warpgroup, two CTAs per SM, first/last layer fp32 FFMA",
                      "ikflow_tpu_torch/csrc/fused_mlp_bf16.cu", main_path_launches_bf16,
-                     max(max_err_b, max_err_pb, max_err_tb),
-                     headline_b, training_launches["fused_mlp_bf16"], 0),
+                     max(max_err_b, max_err_pb, max_err_tb, max_err_mesh_b),
+                     headline_b, training_launches["fused_mlp_bf16"], 0, mesh_launches["fused_mlp_bf16"]),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"total_seconds": round(time.perf_counter() - t_all, 3)}), flush=True)

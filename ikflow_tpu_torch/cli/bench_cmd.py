@@ -11,8 +11,11 @@ the two native ones where the float64 oracle builds). ``--device`` (default
 Per-call times are medians of ``--k`` calls, each timed with the card's
 queue drained before and after. ``--differencing`` times chained solves
 (``utils.benchtools``); on a card each solve in the chain still holds the
-host's time to launch it. ``--scaling`` needs several GPUs, which are not
-ported.
+host's time to launch it. ``--scaling`` prints the rows of
+``parallel.fleet.scaling_efficiency`` over 1 and all CUDA devices (with
+``--device cpu``, the CPU), at the largest batch size; it says on stderr when
+the devices are fewer than two distinct cards, where the rows measure no
+scaling.
 """
 
 from __future__ import annotations
@@ -41,7 +44,7 @@ def add_parser(sub):
     p.add_argument("--sweep_nb_nodes", type=int, nargs="*", default=None,
                    help="runtime-vs-depth sweep of random-weight flows (100 solutions, 30 repeats)")
     p.add_argument("--scaling", action="store_true",
-                   help="1-device vs all-devices exact-IK scaling efficiency (several GPUs: not ported)")
+                   help="1-device vs all-devices exact-IK scaling efficiency")
     p.add_argument("--megabatch", type=int, default=None,
                    help="streaming exact-IK over N poses in fixed-shape chunks (serving scale)")
     p.add_argument("--chunk_size", type=int, default=2048,
@@ -196,16 +199,36 @@ def _run_megabatch(args, solver) -> int:
     return 0
 
 
+def _run_scaling(args, solver) -> int:
+    import sys
+
+    from ikflow_tpu_torch.parallel import fleet
+    from ikflow_tpu_torch.parallel.mesh import make_mesh
+    from ikflow_tpu_torch.training.common import generator
+
+    mesh = make_mesh() if solver.device.type == "cuda" else make_mesh([solver.device])
+    if len({d for d in mesh.devices if d.type == "cuda"}) < 2:
+        print(f"benchmark --scaling: {mesh.size} device(s), fewer than two distinct cards: the rows show the "
+              "mechanics, not cross-card scaling", file=sys.stderr)
+    rows = fleet.scaling_efficiency(
+        solver, n_poses=max(args.batch_sizes), devices=mesh.devices, generator=generator(mesh.devices[0], args.seed),
+        repeat_counts=tuple(args.repeat_counts), n_opt_steps_max=args.n_opt_steps_max,
+        pos_error_threshold=EXACT_POS_TOL, rot_error_threshold=EXACT_ROT_TOL, allow_uninitialized=args.uninitialized,
+    )
+    for row in rows:
+        print(json.dumps(row))
+    return 0
+
+
 def run(args: argparse.Namespace) -> int:
     from ikflow_tpu_torch.solver import derive_retry_capacities
     from ikflow_tpu_torch.training.common import generator
 
-    if args.scaling:
-        raise NotImplementedError("--scaling needs several GPUs; multi-device serving is not ported yet "
-                                  "(ROADMAP: multi-device serving and training over torch.distributed)")
     if args.sweep_nb_nodes is not None:
         return _run_sweep(args)
     solver, _ = solver_from_args(args)
+    if args.scaling:
+        return _run_scaling(args, solver)
     if args.compare:
         return _run_compare(args, solver)
     if args.megabatch:

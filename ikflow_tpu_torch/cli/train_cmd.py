@@ -5,7 +5,11 @@ Port of ``ikflow_tpu/cli/train_cmd.py``, with the same flags and defaults
 ``--smoke`` for a tiny end-to-end run, ``--resume`` from a checkpoint
 directory, ``--init_npz`` to warm-start from a deploy artifact, and
 ``--export`` to write a gated deploy artifact at the end. ``--device``
-(default ``cuda``) picks the device; data parallelism is not ported yet.
+(default ``cuda``) picks the device. ``--data_parallel`` joins the process
+group of a multi-process launch (``parallel.mesh.initialize_multihost``) and
+splits each batch over a mesh of every CUDA device (with ``--device cpu``,
+a mesh of the CPU); as in the JAX package, it never builds the dataset on
+the device.
 """
 
 from __future__ import annotations
@@ -63,6 +67,7 @@ def add_parser(sub):
     p.add_argument("--export_force", action="store_true",
                    help="bypass the export quality gate (the header still records the metric)")
     p.add_argument("--run_dir", type=str, default=None)
+    p.add_argument("--data_parallel", action="store_true", help="shard each batch over all devices")
     p.add_argument("--bf16_hidden", action="store_true",
                    help="bf16 hidden subnet layers (fp32 accumulation); the inverse runs kernel K1'")
     p.add_argument("--on_device_data", action="store_true",
@@ -91,6 +96,11 @@ def _file_sha256(path: str):
 
 def run(args: argparse.Namespace) -> int:
     import torch
+
+    from ikflow_tpu_torch.parallel.mesh import initialize_multihost, make_mesh
+
+    if args.data_parallel:
+        initialize_multihost()  # a no-op unless the environment marks a multi-process launch
 
     from ikflow_tpu_torch import config
     from ikflow_tpu_torch.flow import FlowHyperParams, build_flow
@@ -152,7 +162,7 @@ def run(args: argparse.Namespace) -> int:
             # The dataset carries the requested tags, and a saved copy lands in
             # their directory, where load_dataset looks on the next launch.
             only_nsc = config.DATASET_TAG_NON_SELF_COLLIDING in args.dataset_tags
-            if args.on_device_data:
+            if args.on_device_data and not args.data_parallel:
                 # Generated and consumed on the device, and deterministic in
                 # the seed, so a relaunch regenerates it instead of loading it.
                 dataset = build_dataset_resident(robot, training_set_size=args.dataset_size,
@@ -208,6 +218,11 @@ def run(args: argparse.Namespace) -> int:
               f"(previously trained to step {deploy_header.get('global_step')}; "
               f"optimizer state fresh, step counter restarts at 0)")
 
+    mesh = None
+    if args.data_parallel:
+        mesh = make_mesh() if device.type == "cuda" else make_mesh([device])
+        print(f"data-parallel over {mesh.size} devices")
+
     os.makedirs(run_dir, exist_ok=True)
     ds_hash = _file_sha256(os.path.join(dataset_directory(args.robot_name, tuple(args.dataset_tags)), "dataset.npz"))
     # A --resume relaunch skips --init_npz: recover the provenance from the
@@ -235,7 +250,7 @@ def run(args: argparse.Namespace) -> int:
         if metric_hook is None:
             print("wandb requested but not installed; continuing with JSONL only")
 
-    trainer = Trainer(flow, robot, cfg, log_dir=run_dir, metric_hook=metric_hook, device=device)
+    trainer = Trainer(flow, robot, cfg, log_dir=run_dir, metric_hook=metric_hook, device=device, mesh=mesh)
     try:
         t0 = time.time()
         if args.on_device_data:

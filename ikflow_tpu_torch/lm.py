@@ -97,6 +97,7 @@ def refine(
     lambd_up: float = 5.0,
     restart_generator: Optional[torch.Generator] = None,
     restart_lambd: float = 3.0,
+    restart_noise: Optional[torch.Tensor] = None,
 ):
     """Adaptive-damping LM with first-valid-wins capture, fixed shapes.
 
@@ -106,7 +107,9 @@ def refine(
     a DOF pinned at a limit whose descent points outward is frozen out of
     the solve. With ``restart_generator``, a still-invalid pose whose damping
     reaches ``restart_lambd`` on a rejected step is redrawn uniformly within
-    the limits. Returns (captured_q, captured_valid, q_final).
+    the limits; step i draws ``rand(q.shape)``, or takes ``restart_noise[i]``
+    when given, (n_steps, n, ndof) drawn ahead (a shard's rows of a draw
+    made over the whole batch). Returns (captured_q, captured_valid, q_final).
     """
     n, ndof = q0.shape
     eye = torch.eye(ndof, dtype=q0.dtype, device=q0.device)
@@ -117,7 +120,7 @@ def refine(
     lam = torch.full((n,), lambd, dtype=q0.dtype, device=q0.device)
     cap_q = q0
     cap_valid = torch.zeros((n,), dtype=torch.bool, device=q0.device)
-    for _ in range(n_steps):
+    for step in range(n_steps):
         pose, J = robot.fk_pose_and_jacobian(q)
         r = pose_residual(pose, target_poses)
         valid = _valid(r, pos_tol, rot_tol)
@@ -140,9 +143,12 @@ def refine(
         q_next = torch.where(improved[:, None], q_try, q)
         lam_next = torch.where(improved, torch.clamp(lam * lambd_down, min=lambd_min),
                                torch.clamp(lam * lambd_up, max=lambd_max))
-        if restart_generator is not None:
+        if restart_generator is not None or restart_noise is not None:
             stuck = (lam_next >= restart_lambd) & ~cap_valid & ~improved
-            u = torch.rand(q.shape, generator=restart_generator, device=q.device, dtype=q.dtype)
+            if restart_noise is None:
+                u = torch.rand(q.shape, generator=restart_generator, device=q.device, dtype=q.dtype)
+            else:
+                u = restart_noise[step]
             q_next = torch.where(stuck[:, None], u * (high - low) + low, q_next)
             lam_next = torch.where(stuck, torch.full_like(lam_next, lambd), lam_next)
         q, lam = q_next, lam_next

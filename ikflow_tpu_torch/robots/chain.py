@@ -120,13 +120,13 @@ class KinematicChain:
                 "eye": torch.eye(3, dtype=dtype, device=device),
                 "low": t(self._limits_low),
                 "high": t(self._limits_high),
+                "cap_p0": [t(cap.p0) for cap in self.capsules],
+                "cap_p1": [t(cap.p1) for cap in self.capsules],
             }
             if self._collision_pairs:
                 ia = [a for a, _ in self._collision_pairs]
                 ib = [b for _, b in self._collision_pairs]
                 radii = np.array([cap.radius for cap in self.capsules])
-                c["cap_p0"] = [t(cap.p0) for cap in self.capsules]
-                c["cap_p1"] = [t(cap.p1) for cap in self.capsules]
                 c["pair_a"] = torch.as_tensor(ia, dtype=torch.long, device=device)
                 c["pair_b"] = torch.as_tensor(ib, dtype=torch.long, device=device)
                 c["pair_rsum"] = t(radii[ia] + radii[ib])
@@ -202,6 +202,21 @@ class KinematicChain:
         frames, _, _ = self._rollout(q)
         return torch.stack([R for R, _ in frames], dim=-3), torch.stack([p for _, p in frames], dim=-2)
 
+    def capsule_endpoints(self, q: torch.Tensor) -> torch.Tensor:
+        """World-frame end points of every collision capsule: (..., ndof) ->
+        (..., n_capsules, 2, 3), batched on the input's device."""
+        self._check_q(q)
+        c = self._constants(q.device, q.dtype)
+        Rs, ps = self.fk_frames(q)
+        ends = []
+        for cap, p0, p1 in zip(self.capsules, c["cap_p0"], c["cap_p1"]):
+            if cap.frame_index == 0:
+                ends.append(torch.stack([p0, p1]).expand(q.shape[:-1] + (2, 3)))
+            else:
+                R, p = Rs[..., cap.frame_index - 1, :, :], ps[..., cap.frame_index - 1, :]
+                ends.append(torch.stack([p + _rot(R, p0), p + _rot(R, p1)], dim=-2))
+        return torch.stack(ends, dim=-3)
+
     def config_self_collides(self, q: torch.Tensor) -> torch.Tensor:
         """(..., ndof) -> (...,) bool: any calibrated capsule pair closer than
         the sum of its radii, batched on the input's device."""
@@ -209,17 +224,8 @@ class KinematicChain:
         if not self._collision_pairs:
             return torch.zeros(q.shape[:-1], dtype=torch.bool, device=q.device)
         c = self._constants(q.device, q.dtype)
-        Rs, ps = self.fk_frames(q)
-        a0s, a1s = [], []
-        for i, cap in enumerate(self.capsules):
-            if cap.frame_index == 0:
-                a0s.append(c["cap_p0"][i].expand(q.shape[:-1] + (3,)))
-                a1s.append(c["cap_p1"][i].expand(q.shape[:-1] + (3,)))
-            else:
-                R, p = Rs[..., cap.frame_index - 1, :, :], ps[..., cap.frame_index - 1, :]
-                a0s.append(p + _rot(R, c["cap_p0"][i]))
-                a1s.append(p + _rot(R, c["cap_p1"][i]))
-        A0, A1 = torch.stack(a0s, dim=-2), torch.stack(a1s, dim=-2)
+        ends = self.capsule_endpoints(q)
+        A0, A1 = ends[..., 0, :], ends[..., 1, :]
         ia, ib = c["pair_a"], c["pair_b"]
         d = segment_segment_distance(A0[..., ia, :], A1[..., ia, :], A0[..., ib, :], A1[..., ib, :])
         return torch.any(d < c["pair_rsum"], dim=-1)

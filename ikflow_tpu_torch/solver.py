@@ -128,6 +128,7 @@ class IKFlowSolver:
         # Retry capacities measured by parallel.fleet's "probe" policy, keyed
         # by (weights_version, solve protocol): new weights miss every entry.
         self.capacity_cache: Dict[tuple, tuple] = {}
+        self._replicas: Dict[torch.device, "IKFlowSolver"] = {}
         if params is None:
             params = self._flow.init(torch.Generator(device=self.device).manual_seed(seed))
         self.params = params
@@ -286,15 +287,22 @@ class IKFlowSolver:
         poses = self._tensor(target_poses)
         if poses.ndim != 2 or poses.shape[1] != 7:
             raise ValueError(f"target_poses must be (n, 7), got {tuple(poses.shape)}")
-        n = poses.shape[0]
+        return self._exact_tiers(poses, generator or self._generator, self._solve_tier, repeat_counts,
+                                 (pos_error_threshold, rot_error_threshold, n_opt_steps_max, lambd, latent_scale),
+                                 retry_capacities, return_tier_counts)
+
+    def _exact_tiers(self, poses, g, solve_tier, repeat_counts, tol, retry_capacities, return_tier_counts):
+        """The retry tiers over ``poses`` on their device: each tier compacts
+        the still-invalid poses, runs ``solve_tier(poses, g, r, *tol)`` on
+        them and merges first-valid-wins; a tier after the first is skipped
+        when every pose is valid (one host synchronisation per tier)."""
         repeat_counts = tuple(int(r) for r in repeat_counts)
         if retry_capacities is not None:
             if len(retry_capacities) != len(repeat_counts) or retry_capacities[0] != 1.0:
                 raise ValueError(f"retry_capacities {retry_capacities} must match {repeat_counts} and start at 1.0")
-        g = generator or self._generator
-
-        sols = torch.zeros((n, self.ndof), dtype=torch.float32, device=self.device)
-        valids = torch.zeros((n,), dtype=torch.bool, device=self.device)
+        n = poses.shape[0]
+        sols = torch.zeros((n, self.ndof), dtype=torch.float32, device=poses.device)
+        valids = torch.zeros((n,), dtype=torch.bool, device=poses.device)
         tier_counts = []
         for tier_idx, r in enumerate(repeat_counts):
             if tier_idx > 0 and bool(valids.all()):
@@ -304,30 +312,55 @@ class IKFlowSolver:
             if tier_idx > 0 and retry_capacities is not None:
                 cap = min(n, max(8, math.ceil(retry_capacities[tier_idx] * n)))
             idx = retry_indices(valids, cap)
-            tier_sols, tier_valid = self._solve_tier(
-                poses[idx], g, r, pos_error_threshold, rot_error_threshold, n_opt_steps_max, lambd, latent_scale
-            )
+            tier_sols, tier_valid = solve_tier(poses[idx], g, r, *tol)
             merge_tier(sols, valids, idx, tier_sols, tier_valid)
             tier_counts.append(valids.sum())
         if return_tier_counts:
             return sols, valids, torch.stack(tier_counts)
         return sols, valids
 
-    def _solve_tier(self, poses, g, r, pos_tol, rot_tol, n_steps, lambd, latent_scale):
+    def _solve_tier(self, poses, g, r, pos_tol, rot_tol, n_steps, lambd, latent_scale, latent=None,
+                    restart_noise=None):
         """One tier: tile the poses r times (tile-major), draw flow seeds,
-        refine, and keep the earliest valid tile per pose."""
+        refine, and keep the earliest valid tile per pose. ``latent`` ((r * n,
+        D), unscaled) and ``restart_noise`` ((n_steps, r * n, ndof)) replace
+        the draws from ``g`` when given."""
         n, ndof = poses.shape[0], self.ndof
         poses_tiled = poses.repeat(r, 1)
-        latent = latent_scale * torch.randn((r * n, self._network_width), generator=g, device=self.device)
-        q0 = self._robot.clamp_to_joint_limits(self._inverse_q(latent, self._conditional(poses_tiled)))
+        if latent is None:
+            latent = torch.randn((r * n, self._network_width), generator=g, device=self.device)
+        q0 = self._robot.clamp_to_joint_limits(self._inverse_q(latent_scale * latent,
+                                                               self._conditional(poses_tiled)))
         cap_q, cap_valid, _ = refine(
-            self._robot, q0, poses_tiled, n_steps, pos_tol, rot_tol, lambd, restart_generator=g
+            self._robot, q0, poses_tiled, n_steps, pos_tol, rot_tol, lambd,
+            restart_generator=g if restart_noise is None else None, restart_noise=restart_noise,
         )
         cap_q = cap_q.reshape(r, n, ndof)
         cap_valid = cap_valid.reshape(r, n)
         first = torch.argmax(cap_valid.to(torch.int32), dim=0)
         tier_sols = torch.gather(cap_q, 0, first[None, :, None].expand(1, n, ndof))[0]
         return tier_sols, cap_valid.any(dim=0)
+
+    def replica(self, device) -> "IKFlowSolver":
+        """This solver on ``device``: itself there, else a copy of it that
+        shares its weights version, loaded state and capacity cache. The copy
+        (weights moved, the kernels' packed planes built once) is kept per
+        device until new weights arrive."""
+        from ikflow_tpu_torch.parallel.mesh import canonical_device
+        from ikflow_tpu_torch.training.common import tree_map
+
+        device = canonical_device(device)
+        if device == canonical_device(self.device):
+            return self
+        rep = self._replicas.get(device)
+        if rep is None or rep.weights_version != self.weights_version:
+            rep = IKFlowSolver(self._hp, self._robot, params=tree_map(lambda t: t.to(device), self._params),
+                               device=device)
+            rep.weights_version = self.weights_version
+            rep._weights_loaded = self._weights_loaded
+            rep.capacity_cache = self.capacity_cache
+            self._replicas[device] = rep
+        return rep
 
     # ------------------------------------------------------------------
     def evaluate(self, target_poses, solutions) -> SolutionEvaluation:

@@ -15,7 +15,7 @@ The draws come from a generator, or are passed in as ``noise``.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -35,48 +35,63 @@ def get_softflow_noise(x: torch.Tensor, softflow_noise_scale: float, generator: 
     return c, v
 
 
-def make_loss_fn(flow: GlowFlow, ndof: int) -> Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]:
+def output_metrics(z: torch.Tensor, loss: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The ``tr/output_*`` statistics of the latents ``z`` and ``tr/loss_ml``."""
+    return {
+        "tr/output_max": z.max(),
+        "tr/output_abs_ave": z.abs().mean(),
+        "tr/output_ave": z.mean(),
+        "tr/output_std": z.std(correction=0),
+        "tr/loss_ml": loss,
+    }
+
+
+class LossFn:
     """``loss_fn(params, q, poses, generator=None, noise=None) -> (loss,
     metrics)``: the draws come from ``generator`` unless ``noise`` gives
-    them. The metrics are tensors on the batch's device."""
-    hp = flow.hp
-    pad_width = flow.D - ndof
+    them. The metrics are tensors on the batch's device. ``draw`` and
+    ``latent`` are its two halves, for callers that split a batch (the
+    data-parallel step draws over the whole batch and slices the noise)."""
 
-    def draw(q: torch.Tensor, generator: torch.Generator) -> Noise:
+    def __init__(self, flow: GlowFlow, ndof: int):
+        self.flow = flow
+        self.hp = flow.hp
+        self.pad_width = flow.D - ndof
+
+    def draw(self, q: torch.Tensor, generator: torch.Generator) -> Noise:
         pad = c = v = None
-        if pad_width > 0:
-            pad = 0.001 * torch.randn((q.shape[0], pad_width), generator=generator, device=q.device, dtype=q.dtype)
-        if hp.softflow_enabled:
-            c, v = get_softflow_noise(q.new_empty((q.shape[0], flow.D)), hp.softflow_noise_scale, generator)
+        if self.pad_width > 0:
+            pad = 0.001 * torch.randn((q.shape[0], self.pad_width), generator=generator, device=q.device,
+                                      dtype=q.dtype)
+        if self.hp.softflow_enabled:
+            c, v = get_softflow_noise(q.new_empty((q.shape[0], self.flow.D)), self.hp.softflow_noise_scale, generator)
         return pad, c, v
 
-    def loss_fn(params, q: torch.Tensor, poses: torch.Tensor, generator: Optional[torch.Generator] = None,
-                noise: Optional[Noise] = None):
-        if noise is None:
-            if generator is None:
-                raise ValueError("pass a generator or the noise")
-            noise = draw(q, generator)
+    def latent(self, params, q: torch.Tensor, poses: torch.Tensor, noise: Noise):
+        """(z, logdet) of the noised, padded batch through the flow."""
         pad, c, v = noise
         x = q
-        if pad_width > 0:
-            if hp.sigmoid_on_output:
+        if self.pad_width > 0:
+            if self.hp.sigmoid_on_output:
                 eps = 1e-5
                 pad = torch.clamp(pad, -SIGMOID_SCALING_ABS_MAX + eps, SIGMOID_SCALING_ABS_MAX - eps)
             x = torch.cat([x, pad], dim=1)
         cond = poses
-        if hp.softflow_enabled:
+        if self.hp.softflow_enabled:
             x = x + v
             cond = torch.cat([poses, c], dim=1)
-        z, logdet = flow.forward(params, x, cond)
-        loss = torch.mean(0.5 * torch.sum(z * z, dim=1) - logdet)
-        zd = z.detach()
-        metrics = {
-            "tr/output_max": zd.max(),
-            "tr/output_abs_ave": zd.abs().mean(),
-            "tr/output_ave": zd.mean(),
-            "tr/output_std": zd.std(correction=0),
-            "tr/loss_ml": loss.detach(),
-        }
-        return loss, metrics
+        return self.flow.forward(params, x, cond)
 
-    return loss_fn
+    def __call__(self, params, q: torch.Tensor, poses: torch.Tensor, generator: Optional[torch.Generator] = None,
+                 noise: Optional[Noise] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        if noise is None:
+            if generator is None:
+                raise ValueError("pass a generator or the noise")
+            noise = self.draw(q, generator)
+        z, logdet = self.latent(params, q, poses, noise)
+        loss = torch.mean(0.5 * torch.sum(z * z, dim=1) - logdet)
+        return loss, output_metrics(z.detach(), loss.detach())
+
+
+def make_loss_fn(flow: GlowFlow, ndof: int) -> LossFn:
+    return LossFn(flow, ndof)

@@ -18,7 +18,18 @@ The training forward runs the plain subnet under autograd (with
 ``apply_subnet``); TF32 stays off. Every run draws from generators seeded by
 ``(seed, start_step)``, so a resumed run continues with a fresh stream.
 ``fit`` and ``fit_on_device`` copy the parameters at entry and leave the
-caller's tensors untouched. Data parallelism is not ported yet.
+caller's tensors untouched.
+
+With a ``mesh`` (``parallel.mesh``), each step is data-parallel: the noise is
+drawn over the whole batch, each mesh entry takes its slice of the batch and
+the noise and runs the loss on its own copy of the parameters (entries on the
+first entry's device use its tensors), and one backward pass brings every
+entry's gradient, weighted by its share of the batch, onto the first entry,
+so the sum is the full batch's mean gradient. Under a process group of more
+than one process each rank takes its slice of the batch first, and the flat
+gradient is all-reduced across ranks. One optimizer update runs on the first
+entry; the copies are made from it again at the next step. Validation runs
+on the first entry.
 """
 
 from __future__ import annotations
@@ -39,7 +50,8 @@ from ikflow_tpu_torch.robots.chain import KinematicChain
 from ikflow_tpu_torch.training.checkpoints import save_checkpoint
 from ikflow_tpu_torch.training.common import generator, tree_leaves, tree_map
 from ikflow_tpu_torch.training.dataset import IkDataset, iterate_batches
-from ikflow_tpu_torch.training.loss import Noise, make_loss_fn
+from ikflow_tpu_torch.parallel.mesh import Mesh, process_world, split_bounds
+from ikflow_tpu_torch.training.loss import Noise, make_loss_fn, output_metrics
 from ikflow_tpu_torch.training.optimizers import Optimizer, make_optimizer
 
 # Generator streams of one seed.
@@ -94,12 +106,14 @@ class Trainer:
         log_dir: Optional[str] = None,
         metric_hook: Optional[Callable[[int, Dict], None]] = None,
         device="cuda",
+        mesh: Optional[Mesh] = None,
     ):
         disable_tf32()
         self.flow = flow
         self.robot = robot
         self.config = config
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(device) if mesh is None else mesh.devices[0]
         self.log_dir = log_dir
         self.metric_hook = metric_hook
         self._metrics_file = None
@@ -126,10 +140,9 @@ class Trainer:
         """One update of ``params`` (leaves that need grads, the optimizer's)
         in place. Returns the ``tr/*`` metrics as tensors, or only
         ``tr/loss`` without ``with_metrics``."""
-        loss, metrics = self.loss_fn(params, q, poses, generator=generator, noise=noise)
         leaves = optimizer.params
-        grads = torch.autograd.grad(loss, leaves)
-        out = {"tr/loss": loss.detach()}
+        loss, metrics, grads = self.loss_and_grads(params, leaves, q, poses, generator, noise)
+        out = {"tr/loss": loss}
         if with_metrics:
             out.update(metrics)
             out.update(grad_stats(grads))
@@ -138,6 +151,43 @@ class Trainer:
         optimizer.step()
         optimizer.zero_grad()
         return out
+
+    def loss_and_grads(self, params, leaves, q: torch.Tensor, poses: torch.Tensor,
+                       generator: Optional[torch.Generator] = None, noise: Optional[Noise] = None):
+        """(loss, ``tr/output_*`` metrics, gradients w.r.t. ``leaves``) of one
+        batch: on the trainer's device, or split over its mesh (and across
+        ranks) with the full batch's mean gradient on the first entry."""
+        if self.mesh is None:
+            loss, metrics = self.loss_fn(params, q, poses, generator=generator, noise=noise)
+            return loss.detach(), metrics, torch.autograd.grad(loss, leaves)
+        if noise is None:
+            if generator is None:
+                raise ValueError("pass a generator or the noise")
+            noise = self.loss_fn.draw(q, generator)
+        world, rank = process_world()
+        total = q.shape[0]
+        per_rank = total // world
+        bounds = [rank * per_rank + b for b in split_bounds(per_rank, self.mesh.size)]
+        loss, zs = 0.0, []
+        for k, dev in enumerate(self.mesh.devices):
+            a, b = bounds[k], bounds[k + 1]
+            take = lambda t: None if t is None else t[a:b].to(dev)  # noqa: E731
+            replica = tree_map(lambda t: t.to(dev), params)
+            z, logdet = self.loss_fn.latent(replica, take(q), take(poses), tuple(take(t) for t in noise))
+            shard_loss = torch.mean(0.5 * torch.sum(z * z, dim=1) - logdet) * ((b - a) / total)
+            loss = loss + shard_loss.to(self.device)
+            zs.append(z.detach().to(self.device))
+        grads = torch.autograd.grad(loss, leaves)
+        loss = loss.detach()
+        if world > 1:
+            import torch.distributed as dist
+
+            flat = torch.cat([g.reshape(-1) for g in grads] + [loss.reshape(1)])
+            dist.all_reduce(flat)
+            parts = torch.split(flat, [g.numel() for g in grads] + [1])
+            grads = tuple(p.view_as(g) for p, g in zip(parts, grads))
+            loss = parts[-1].reshape(())
+        return loss, output_metrics(torch.cat(zs), loss), grads
 
     # ------------------------------------------------------------------
     def _log(self, step: int, metrics: Dict) -> None:
@@ -186,7 +236,13 @@ class Trainer:
 
     def _start(self, params, opt_state, start_step: int):
         """Trainable copies of ``params``, their optimizer (``opt_state``
-        loaded when given) and the run's generator on the device."""
+        loaded when given) and the run's generator on the device. With a
+        mesh, the batch must divide over its entries (and ranks)."""
+        if self.mesh is not None:
+            n_dev = self.mesh.size * process_world()[0]
+            if self.config.batch_size % n_dev:
+                raise ValueError(f"batch_size ({self.config.batch_size}) must be divisible by the mesh size "
+                                 f"({n_dev}) to shard the batch axis")
         params = _trainable(tree_map(lambda t: t.to(self.device), params))
         optimizer = self.make_optimizer(params)
         if opt_state is not None:

@@ -7,6 +7,7 @@ numbers masked, the JSON rows by their keys, and the grading on solutions
 handed to both packages (within 1e-5). The default architecture is swapped
 for the tiny flow in both packages, so each run takes seconds."""
 
+import json
 import os
 import re
 import types
@@ -161,6 +162,7 @@ def test_build_dataset_output_loads_in_both_packages(capsys, monkeypatch, tmp_pa
     ["evaluate", "--robot_name", "panda", "--uninitialized", "--testset_size", "2"],
     ["benchmark", "--robot_name", "panda", "--batch_sizes", "2"],
     ["build-dataset", "--robot_name", "panda", "--training_set_size", "16"],
+    ["visualize", "--robot_name", "panda", "--interactive"],
 ], ids=lambda a: a[0])
 def test_default_device_is_the_card(argv):
     """Without --device each subcommand asks for the card, and without one
@@ -169,6 +171,25 @@ def test_default_device_is_the_card(argv):
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(argv)
+
+
+@pytest.mark.parametrize("demo", ["oscillate_latent", "oscillate_target", "visualize_fk", "oscillate_joints"])
+@pytest.mark.parametrize("interactive", [True, False], ids=["html", "png_gif"])
+def test_visualize_writes_what_jax_writes(capsys, tiny_default, tmp_path, demo, interactive):
+    """``visualize`` prints JAX's line for each demo and writes a file of the
+    same kind; an interactive scene has the frame count asked for."""
+    ext = "html" if interactive else ("png" if demo == "visualize_fk" else "gif")
+    argv = ["visualize", "--robot_name", "panda", "--demo_name", demo, "--n_frames", "3", "--uninitialized"]
+    argv += ["--interactive"] if interactive else []
+    port, jax_out = _both(capsys, argv + ["--output", str(tmp_path / f"port.{ext}")])
+    assert port.strip() == f"wrote {tmp_path / f'port.{ext}'}"
+    assert jax_main(argv + ["--output", str(tmp_path / f"jax.{ext}")]) == 0
+    sizes = [os.path.getsize(tmp_path / f"{who}.{ext}") for who in ("port", "jax")]
+    assert min(sizes) > 5_000
+    if interactive:
+        frames = [len(json.loads(re.search(r"const DATA = (\{.*?\});\n", (tmp_path / f"{who}.{ext}").read_text())
+                                 .group(1))["frames"]) for who in ("port", "jax")]
+        assert frames[0] == frames[1] == (5 if demo == "visualize_fk" else 3)
 
 
 def test_runtime_escalation_stays_inside_its_budget(monkeypatch):

@@ -1,7 +1,7 @@
 """``ikflow-torch benchmark`` on the CPU (``--device cpu``) against the JAX
 package's ``ikflow-tpu benchmark`` on the same arguments: each row's JSON
 keys, the four ``--compare`` methods, the megabatch legs, the depth sweep
-and the refusal of ``--scaling``. Both packages' default architecture is
+and the ``--scaling`` rows. Both packages' default architecture is
 swapped for the tiny flow (``tiny_default``)."""
 
 import json
@@ -10,6 +10,10 @@ import pytest
 
 from ikflow_tpu_torch.cli.main import main
 from test_torch_cli import _both, tiny_default  # noqa: F401  (a fixture)
+
+
+def _keys_plain(out):
+    return [sorted(row) for row in map(json.loads, out.strip().splitlines())]
 
 
 def _keys(out):
@@ -36,5 +40,12 @@ def test_benchmark_megabatch_and_sweep_rows(capsys, tiny_default):
     assert main(["benchmark", "--robot_name", "panda", "--sweep_nb_nodes", "1", "2", "--device", "cpu"]) == 0
     rows = [json.loads(x) for x in capsys.readouterr().out.strip().splitlines()]
     assert [(r["mode"], r["nb_nodes"]) for r in rows] == [("nb_nodes_sweep", 1), ("nb_nodes_sweep", 2)]
-    with pytest.raises(NotImplementedError):
-        main(["benchmark", "--robot_name", "panda", "--scaling", "--device", "cpu"])
+    # --scaling: the JAX package's rows (1 and 8 virtual devices) and the
+    # port's (1 and 1: the CPU) have the same keys; the port's are finite.
+    argv = ["benchmark", "--robot_name", "panda", "--scaling", "--batch_sizes", "8", "--n_opt_steps_max", "1",
+            "--repeat_counts", "1", "--uninitialized"]
+    port, jax_out = _both(capsys, argv)
+    assert _keys_plain(port) == _keys_plain(jax_out)
+    rows = [json.loads(x) for x in port.strip().splitlines()]
+    assert [r["devices"] for r in rows] == [1, 1]
+    assert all(r["sols_per_s"] > 0 and r["seconds"] > 0 and r["efficiency"] > 0 for r in rows)

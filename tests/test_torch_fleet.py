@@ -21,6 +21,7 @@ from ikflow_tpu.parallel.mesh import make_mesh
 from ikflow_tpu_torch.evaluation import solution_diversity, solution_pose_errors
 from ikflow_tpu_torch.flow import tiny_model_params
 from ikflow_tpu_torch.parallel import fleet
+from ikflow_tpu_torch.parallel.mesh import make_mesh as make_port_mesh
 from ikflow_tpu_torch.robots import get_robot
 from ikflow_tpu_torch.solver import IKFlowSolver, select_diverse
 from test_torch_solver import _reachable, _solver_pair
@@ -95,7 +96,7 @@ def test_megabatch_accounting_matches_jax(monkeypatch):
 
         return fn
 
-    def port_chunk(solver, chunk, r, seed, salt, start, sk):
+    def port_chunk(solver, chunk, r, seed, salt, start, sk, mesh=None):
         i = chunk[:, 0].numpy().astype(int)
         port_log.append((r, start, tuple(i)))
         s, v = _oracle(i, r, start)
@@ -125,16 +126,15 @@ def test_megabatch_accounting_matches_jax(monkeypatch):
 
 @pytest.mark.parametrize("kwargs", [
     {"retry_capacities": "probe"}, {"retry_capacities": (1.0, 0.5, 0.1)}, {"retry_capacities": None},
-    {"mesh": "two-gpu mesh"},
+    {"mesh": "two-entry mesh"},
 ])
 def test_megabatch_unported_policies_raise(kwargs):
-    """Only a mesh (several GPUs) is left unported; the other policies run
-    on one device (``tests/test_torch_fleet_probe.py`` holds them to JAX)."""
+    """Every policy runs, and so does a mesh (two replicas on the CPU; the
+    name is kept from when meshes were unported and raised).
+    ``tests/test_torch_fleet_probe.py`` holds the policies to JAX,
+    ``tests/test_torch_sharded.py`` the mesh."""
     if "mesh" in kwargs:
-        with pytest.raises(NotImplementedError):
-            fleet.solve_exact_megabatch(_tiny_solver(), np.zeros((4, 7), np.float32), allow_uninitialized=True,
-                                        **kwargs)
-        return
+        kwargs = {"mesh": make_port_mesh([torch.device("cpu")] * 2)}
     sols, valids = fleet.solve_exact_megabatch(_tiny_solver(), _reachable(4, seed=1), chunk_size=4,
                                                repeat_counts=(1, 2, 4), n_opt_steps_max=1, allow_uninitialized=True,
                                                **kwargs)

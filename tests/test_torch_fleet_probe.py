@@ -54,7 +54,7 @@ def test_probe_accounting_matches_jax(monkeypatch, degrade):
         out = (jnp.asarray(s), jnp.asarray(v))
         return out + (jnp.asarray(_tier_counts(i.shape[0])),) if return_tier_counts else out
 
-    def port_chunk(solver, chunk, g, repeat_counts, capacities, tol):
+    def port_chunk(solver, chunk, g, repeat_counts, capacities, tol, mesh=None):
         i = chunk[:, 0].numpy().astype(int)
         port_log.append((tuple(i), capacities))
         s, v = _outcome(i, capacities is not None, degrade)

@@ -254,3 +254,78 @@ def test_training_stays_on_the_card_and_validates_through_k1(cuda):
     z_cpu, logdet_cpu = flow.forward(tree_map(lambda t: t.cpu(), trained), x.cpu(), cond.cpu())
     torch.testing.assert_close(z.cpu(), z_cpu, atol=1e-4, rtol=0)
     assert float((logdet.cpu() - logdet_cpu).abs().max()) <= 1e-4 * max(1.0, float(logdet_cpu.abs().max()))
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["k1", "k1b"])
+def test_sharded_solve_on_two_replicas_of_one_card(cuda, bf16):
+    """``solve_exact_sharded`` on [cuda:0, cuda:0] launches its kernel once
+    per shard and subnet and agrees with the unsharded solve: flow seeds
+    within 1e-5 (K1 and K1' compute each row alike at any row count), valid
+    shares within 0.05. A solver on the CPU with a card mesh gets a replica on
+    the card that shares its weights version and is rebuilt for new weights."""
+    import dataclasses
+
+    from ikflow_tpu_torch.parallel import fleet
+    from ikflow_tpu_torch.parallel.mesh import make_mesh
+
+    hp = tiny_model_params()
+    hp.dim_latent_space = 8
+    hp = dataclasses.replace(hp, bf16_hidden=bf16)
+    robot = get_robot("panda")
+    solver = IKFlowSolver(hp, robot, seed=0, device=cuda)
+    kernel = fused_mlp_bf16 if bf16 else fused_mlp
+    poses = robot.forward_kinematics(robot.sample_joint_angles(64, torch.Generator(device=cuda).manual_seed(1),
+                                                               joint_limit_eps=0.02))
+    kw = dict(repeat_counts=(1,), n_opt_steps_max=0, allow_uninitialized=True)
+    mesh = make_mesh([cuda, cuda])
+    before = kernel.launches
+    seeds2, _ = fleet.solve_exact_sharded(solver, poses, mesh, generator=torch.Generator(device=cuda).manual_seed(2),
+                                          **kw)
+    torch.cuda.synchronize()
+    assert kernel.launches - before == 2 * 2 * hp.nb_nodes
+    seeds1, _ = solver.generate_exact_ik_solutions(poses, generator=torch.Generator(device=cuda).manual_seed(2), **kw)
+    torch.testing.assert_close(seeds2, seeds1, atol=1e-5, rtol=0)
+    kw = dict(repeat_counts=(1, 3), n_opt_steps_max=12, pos_error_threshold=1e-2, rot_error_threshold=0.1,
+              allow_uninitialized=True)
+    _, v2 = fleet.solve_exact_sharded(solver, poses, mesh, generator=torch.Generator(device=cuda).manual_seed(3), **kw)
+    _, v1 = solver.generate_exact_ik_solutions(poses, generator=torch.Generator(device=cuda).manual_seed(3), **kw)
+    assert abs(float(v1.float().mean()) - float(v2.float().mean())) <= 0.05
+
+    cpu_solver = IKFlowSolver(hp, robot, seed=0, device="cpu")
+    rep = cpu_solver.replica(cuda)
+    assert rep is not cpu_solver and rep.weights_version == cpu_solver.weights_version
+    assert rep.capacity_cache is cpu_solver.capacity_cache and cpu_solver.replica("cuda:0") is rep
+    cpu_solver.set_params(cpu_solver.params)
+    assert cpu_solver.replica(cuda) is not rep and cpu_solver.replica(cuda).weights_version == 2
+    s, v = fleet.solve_exact_sharded(cpu_solver, poses.cpu(), mesh, **kw)
+    assert s.is_cuda and v.shape == (64,)
+
+
+def test_data_parallel_step_on_two_replicas_of_one_card(cuda):
+    """One Trainer step on [cuda:0, cuda:0] against the unsharded step with
+    the same noise: the loss within 1e-5 relative and every gradient within
+    1e-4 of the largest |g| (cuBLAS sums half-batches in another order)."""
+    from ikflow_tpu_torch.flow import build_flow
+    from ikflow_tpu_torch.parallel.mesh import make_mesh
+    from ikflow_tpu_torch.training import TrainConfig, Trainer
+    from ikflow_tpu_torch.training.common import tree_leaves, tree_map
+
+    hp = tiny_model_params()
+    hp.dim_latent_space = 8
+    robot = get_robot("panda")
+    flow = build_flow(hp, robot)
+    params = flow.init(torch.Generator(device=cuda).manual_seed(0))
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q = robot.sample_joint_angles(256, g)
+    poses = robot.forward_kinematics(q)
+    out = []
+    for mesh in (None, make_mesh([cuda, cuda])):
+        trainer = Trainer(flow, robot, TrainConfig(batch_size=256), device=cuda, mesh=mesh)
+        tree = tree_map(lambda t: t.detach().clone().requires_grad_(True), params)
+        noise = trainer.loss_fn.draw(q, torch.Generator(device=cuda).manual_seed(2))
+        out.append(trainer.loss_and_grads(tree, tree_leaves(tree), q, poses, noise=noise))
+    (l1, _, g1), (l2, _, g2) = out
+    assert abs(float(l1) - float(l2)) <= 1e-5 * abs(float(l1))
+    gmax = max(float(g.abs().max()) for g in g1)
+    for a, b in zip(g1, g2):
+        assert a.is_cuda and float((a - b).abs().max()) <= 1e-4 * gmax

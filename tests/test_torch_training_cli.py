@@ -91,3 +91,20 @@ def test_train_defaults_to_the_card():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["train", "--robot_name", "panda", "--smoke"])
+
+
+def test_train_data_parallel(cache, capsys):
+    """``--data_parallel`` with ``--device cpu``: a mesh of the CPU, JAX's
+    line, and a run that trains; without a card and without ``--device`` it
+    raises, as every subcommand does."""
+    run_dir = str(cache / "dp")
+    argv = ["train", "--data_parallel", "--dataset_size", "512", "--n_steps", "4", "--batch_size", "64",
+            "--log_every", "1", "--eval_every", "0", "--checkpoint_every", "0", "--val_set_size", "8",
+            "--run_dir", run_dir, "--dataset_tags", "tiny-dp-fixture"] + TINY
+    assert main(argv) == 0
+    out = capsys.readouterr().out
+    assert "data-parallel over 1 devices" in out and "trained 4 steps (0 -> 4)" in out
+    assert len(_losses(run_dir)) == 4
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(["train", "--robot_name", "panda", "--smoke", "--data_parallel"])
