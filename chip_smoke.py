@@ -101,6 +101,48 @@ import faulthandler; faulthandler.dump_traceback_later(600, exit=True)  # noqa: 
 # 30. examples: ``examples/torch_example.py`` and
 #     ``examples/torch_fleet_serving.py`` as processes on the card.
 #
+# Phases 5-30 run the solvers' eager path on the card (``use_graphs`` off on
+# the class: the command-line phases build their own solvers), as every
+# earlier version of this script drove them, with the wrappers' counts
+# holding every launch: it is the reference the graph phases hold the
+# captured programs to. The examples' processes serve through the graphs,
+# the library's default. On the graphs a key's first call runs eagerly, its
+# second captures the graph, and later calls replay it; a replay launches
+# the kernels without passing through their wrappers, so phases 31-32 count
+# the kernels of a replayed run in its torch.profiler trace.
+#
+# 31. graphs_exact, graphs_exact_bf16: the 1000 poses through the captured
+#     tier graphs (tiers (1, 3, 10), 3 LM steps, 1 mm / 0.01 rad, latent
+#     scale 0.75) against the eager path from the same generator seed (equal
+#     valids and tier counts, solutions within GRAPH_EAGER_ATOL) on a fresh
+#     cache's first (eager) call, its second (capturing) call and a replay,
+#     with the time of each and the launches the wrappers counted on the
+#     first; the float64 recheck; each path's wall time over
+#     GRAPH_TIMED_RUNS runs (CUDA events); the host tier skip against
+#     running every tier with no host check; a weight swap (``set_params``
+#     empties the cache; the graphs captured on the new weights equal the
+#     eager path there); the replayed main path (approximate, then exact)
+#     traced with the counts set to 0 just before: K1 / K1' ran 2 x blocks
+#     times per inverse, the wrappers counted nothing; and a torch.profiler
+#     trace of each path (device ms, idle share, device kernels, host launch
+#     calls);
+# 32. graphs_paths: the 100000 poses through ``solve_exact_megabatch``
+#     (compact and probe) on the graphs against the eager compact run, with
+#     the kernels of a replayed run counted in its trace;
+#     ``solve_exact_sharded`` on [cuda:0, cuda:0] against the unsharded
+#     graph solve; ``generate_ik_solutions`` (detailed) and
+#     ``generate_diverse_ik_solutions`` against eager; ``evaluate``'s
+#     runtime column on both paths; then graphs_cli: the command line on
+#     the graphs against the same commands on the eager path: ``solve
+#     --exact`` one-shot (its time on both), ``evaluate --do_refinement``
+#     and ``benchmark`` (curve and megabatch, --capacity probe) with equal
+#     results and the card's peak reserved memory on both.
+#
+# The kernels line's ``launches`` is the count of each kernel in the trace
+# of the replayed main path of phase 31; ``eager_main_path_launches`` is
+# what the wrappers counted over the eager main path of phases 5-6 and 9,
+# and ``graph_first_call_launches`` over a fresh cache's first calls.
+#
 # Phases 13-15 and 17-30 write every file (cache, datasets, run directory,
 # checkpoints, the export, the performances table, the HTML scenes) under
 # temporary directories that are removed at the end.
@@ -238,6 +280,15 @@ VIZ_FRAMES = 24
 VIZ_FK_ATOL = 1e-5  # capsule end points, metres: fp32 FK on the card vs the CPU
 EXAMPLES_TIMEOUT_S = 300
 MATMUL_KERNEL = re.compile(r"gemm|cutlass|xmma|matmul|fused_mlp", re.IGNORECASE)
+# Captured programs (phases 31-32). The graph replays the eager path's
+# kernels on the same draws, so its solutions should equal the eager ones.
+GRAPH_EAGER_ATOL = 1e-6
+GRAPH_TIMED_RUNS = 7
+CLI_ONE_SHOT_RUNS = 3  # ``solve --exact`` in-process on each path, in turns
+GRAPH_EXACT_KW = dict(repeat_counts=(1, 3, 10), pos_error_threshold=1e-3, rot_error_threshold=0.01,
+                      n_opt_steps_max=3, latent_scale=0.75, return_tier_counts=True)
+# The host's calls that queue work on the card, as torch.profiler records them.
+HOST_LAUNCH = re.compile(r"^cu(da)?(LaunchKernel|LaunchKernelEx|LaunchKernelExC|GraphLaunch|MemcpyAsync|MemsetAsync)")
 
 
 def emit(phase, t0, **fields):
@@ -640,7 +691,7 @@ def kernel_rows(kernel, plain, bound, params, batches, gen, close, contrast=None
 
 
 def kernel_entry(name, specialization, source, launches, max_err, headline, training_launches, cli_launches,
-                 mesh_launches):
+                 mesh_launches, eager_launches, first_call_launches):
     return {
         "name": name,
         "specialization": specialization,
@@ -658,6 +709,8 @@ def kernel_entry(name, specialization, source, launches, max_err, headline, trai
         "training_launches": training_launches,
         "cli_launches": cli_launches,
         "mesh_launches": mesh_launches,
+        "eager_main_path_launches": eager_launches,
+        "graph_first_call_launches": first_call_launches,
     }
 
 
@@ -1483,6 +1536,448 @@ def cli_phases(hp, robot, targets, dev, close_fp32):
     return launches, max_err
 
 
+def profile_solve(fn):
+    """One call of ``fn`` under torch.profiler: wall ms, device ms by kernel,
+    the idle share, the device's kernel count and the host's launch calls
+    (HOST_LAUNCH: kernel and graph launches, copies and fills)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    host = {}
+    for evt in prof.profiler.kineto_results.events():
+        if evt.device_type() != torch.autograd.DeviceType.CUDA and HOST_LAUNCH.match(evt.name()):
+            host[evt.name()] = host.get(evt.name(), 0) + 1
+    kernels = device_kernels(prof)
+    out = {"wall_ms": wall_ms, "host_launch_calls": sum(host.values()), "host_calls_by_name": host}
+    if not kernels:
+        return {**out, "device_ms": "not measured"}
+    device_ms = sum(ms for ms, _ in kernels.values())
+    subnet_ms = sum(ms for k, (ms, _) in kernels.items() if "fused_mlp" in k)
+    return {**out, "device_ms": device_ms, "idle_share": 1.0 - device_ms / wall_ms,
+            "device_kernels": sum(c for _, c in kernels.values()), "subnet_kernel_ms": subnet_ms,
+            "other_kernels_ms": device_ms - subnet_ms, "subnet_launches": subnet_launches(kernels)}
+
+
+def subnet_launches(kernels):
+    """(K1, K1') kernels that ran on the card, from ``device_kernels``."""
+    return (sum(c for k, (_, c) in kernels.items() if "fused_mlp_kernel" in k),
+            sum(c for k, (_, c) in kernels.items() if "fused_mlp_bf16_kernel" in k))
+
+
+def traced_launches(fn):
+    """``fn()`` under torch.profiler (device activity only) with the
+    wrappers' counts set to 0 just before. -> (fn's result, (K1, K1')
+    kernels that the trace holds, (K1, K1') launches the wrappers counted).
+    A graph's replay launches its kernels without the wrappers: the trace
+    is what counts them, and it may hold fewer than ran (late in this
+    script the trace of the 1000-pose approximate replay held 22 of its 24
+    K1 kernels, with the card idle 50 ms at each end of the window or not;
+    in a fresh process it held 24). The replays' equality with the eager
+    path on fresh draws is what shows that every kernel ran."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _count_reset()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    wrappers = _counts()
+    kernels = device_kernels(prof)
+    check(bool(kernels), "the trace holds no device kernel: launches not measured")
+    return out, subnet_launches(kernels), wrappers
+
+
+def spread(ts):
+    """Median and range of a list of seconds, in ms."""
+    ts = sorted(ts)
+    return {"median_ms": 1e3 * ts[len(ts) // 2], "min_ms": 1e3 * ts[0], "max_ms": 1e3 * ts[-1], "runs": len(ts)}
+
+
+def graph_gap(a, b):
+    """Max |a - b| over the solutions, and whether valids and tier counts agree."""
+    return {"max_abs_diff": float((a[0] - b[0]).abs().max()), "valids_equal": bool(torch.equal(a[1], b[1])),
+            "tier_counts_equal": len(a) < 3 or bool(torch.equal(a[2], b[2]))}
+
+
+def check_graph_equals_eager(label, got, ref):
+    gap = graph_gap(got, ref)
+    check(gap["valids_equal"] and gap["tier_counts_equal"] and gap["max_abs_diff"] <= GRAPH_EAGER_ATOL,
+          f"{label}: the graph path differs from the eager path: {gap}")
+    return gap
+
+
+def exact_every_tier(slv, poses, g, kw):
+    """The exact tiers with no host check between them: every tier runs (on
+    the graph path each is a replay), where ``_exact_tiers`` asks the host
+    before each retry tier whether any pose is left."""
+    from ikflow_tpu_torch.solver import merge_tier, retry_indices
+
+    n = poses.shape[0]
+    sols = torch.zeros((n, slv.ndof), dtype=torch.float32, device=poses.device)
+    valids = torch.zeros((n,), dtype=torch.bool, device=poses.device)
+    counts = []
+    tol = tuple(kw[k] for k in ("pos_error_threshold", "rot_error_threshold", "n_opt_steps_max")) + (1e-4,
+                                                                                                     kw["latent_scale"])
+    for r in kw["repeat_counts"]:
+        idx = retry_indices(valids, n)
+        merge_tier(sols, valids, idx, *slv._solve_tier(poses[idx], g, r, *tol))
+        counts.append(valids.sum())
+    return sols, valids, torch.stack(counts)
+
+
+def phase_graphs_exact(phase, slv, kernel, hp, targets, dev):
+    """31. The exact solve of the 1000 poses through the captured tier graphs
+    against the eager path. -> the K1 or K1' kernels that the replayed main
+    path (the approximate and the exact solve) ran, from its trace, and the
+    launches the wrappers counted on a fresh cache's first calls."""
+    from ikflow_tpu_torch.cli.common import timed_call_s
+    from ikflow_tpu_torch.graphs import WARMUP_CALLS
+
+    t0 = time.perf_counter()
+    robot = slv.robot
+    mine = 0 if kernel.__name__ == "fused_mlp" else 1
+
+    def gen(seed=100):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def solve(graphs, seed=100):
+        slv.use_graphs = graphs
+        return slv.generate_exact_ik_solutions(targets, generator=gen(seed), **GRAPH_EXACT_KW)
+
+    def approx(graphs=True, seed=7):
+        slv.use_graphs = graphs
+        return slv.generate_ik_solutions(targets, generator=gen(seed), return_detailed=True)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t1
+
+    def tiers_of(out):
+        return 1 + sum(1 for c in out[2][:-1].tolist() if c < N_POSES)
+
+    eager = solve(False)
+    tiers_run = tiers_of(eager)
+    if slv._graphs is not None:
+        slv._graphs.clear()
+    # The user's path on a fresh cache: each key's first call runs eagerly
+    # (the wrappers count its launches), the second captures and replays.
+    _count_reset()
+    first, first_call_s = timed(lambda: solve(True))
+    approx()
+    first_call_launches = _counts()
+    cache = slv._graphs
+    check(cache.captures == 0 and first_call_launches[mine] == 2 * hp.nb_nodes * (tiers_run + 1)
+          and first_call_launches[1 - mine] == 0,
+          f"{phase}: a fresh cache's first calls captured {cache.captures} graphs, counted {first_call_launches}")
+    captures, capture_s = cache.captures, cache.capture_seconds
+    second, second_call_s = timed(lambda: solve(True))
+    approx()
+    capture = {"first_call_s": first_call_s, "first_call_launches": first_call_launches,
+               "second_call_s": second_call_s, "graphs_captured": cache.captures - captures,
+               "capture_s": cache.capture_seconds - capture_s, "entries": len(cache)}
+    replay = solve(True)
+    gaps = {"first_call": check_graph_equals_eager(phase, first, eager),
+            "second_call": check_graph_equals_eager(phase, second, eager),
+            "replay": check_graph_equals_eager(phase, replay, eager)}
+    tiers = [int(c) for c in replay[2].cpu()]
+    check(capture["graphs_captured"] == tiers_run + 1, f"{phase}: the second calls captured {capture}")
+    summary = check_solutions(robot, replay[0].cpu().numpy(), replay[1].cpu().numpy(), targets.cpu().numpy(),
+                              0.99, 0.01)
+
+    # Wall times in turns (eager, graph, every tier with no host check), so
+    # that the three share the card's state; then the host tier skip against
+    # replaying every tier with no host check.
+    slv.use_graphs = True
+    for _ in range(WARMUP_CALLS):
+        every = exact_every_tier(slv, targets, gen(), GRAPH_EXACT_KW)
+    skip_gap = graph_gap(every, replay)
+    check(skip_gap["valids_equal"] and skip_gap["max_abs_diff"] <= GRAPH_EAGER_ATOL,
+          f"{phase}: every tier without the host check differs: {skip_gap}")
+    runs = {"eager": lambda: solve(False), "graph": lambda: solve(True),
+            "every_tier_no_check": lambda: exact_every_tier(slv, targets, gen(), GRAPH_EXACT_KW)}
+    ts = {name: [] for name in runs}
+    for _ in range(GRAPH_TIMED_RUNS):
+        for name, fn in runs.items():
+            ts[name].append(timed_call_s(fn, dev))
+    slv.use_graphs = True
+    times = {name: spread(t) for name, t in ts.items()}
+    tier_skip = {"with_host_check": times["graph"], "every_tier_no_check": times.pop("every_tier_no_check"),
+                 "tiers_run": tiers_run, **skip_gap}
+
+    # Weight swap: new parameters empty the cache, and the graphs captured
+    # on them equal the eager path there.
+    original = slv.params
+    pert = torch.Generator(device=dev).manual_seed(9)
+    swapped = tuple({k: [{n: t + 1e-3 * t.abs().mean() * torch.randn(t.shape, generator=pert, device=dev)
+                          for n, t in lay.items()} for lay in blk[k]] for k in blk} for blk in original)
+    slv.set_params(swapped)
+    emptied = len(slv._graphs) + len(slv._graphs._seen)
+    try:
+        check(emptied == 0, f"{phase}: set_params left {emptied} keys in the cache")
+        swap_eager = solve(False)
+        swap_graph = [solve(True) for _ in range(WARMUP_CALLS + 1)]  # eager, captured, replayed
+        check(len(slv._graphs) == tiers_of(swap_eager),
+              f"{phase}: the new weights' graphs were not captured: {len(slv._graphs)} entries")
+        swap_gap = [check_graph_equals_eager(f"{phase} after set_params", g, swap_eager) for g in swap_graph]
+        swap_moved = float((swap_graph[-1][0] - replay[0]).abs().max())
+    finally:
+        slv.set_params(original)
+        slv.use_graphs = True
+    for _ in range(WARMUP_CALLS):  # the original weights' graphs, captured again
+        solve(True)
+        approx()
+    # The main path replayed on draws the graphs have not run (seeds 8 and
+    # 101), the counts set to 0 just before, against the eager path on the
+    # same draws: equal outputs show that every node of each graph ran (a
+    # skipped kernel would leave the last replay's numbers in its output);
+    # the trace counts the K1 / K1' kernels, the wrappers count nothing.
+    approx_ref, exact_ref = approx(False, 8), solve(False, 101)
+    (sols, pos_err, _, jle, _), approx_launches, approx_wrappers = traced_launches(lambda: approx(True, 8))
+    exact_got, exact_launches, exact_wrappers = traced_launches(lambda: solve(True, 101))
+    check(torch.equal(sols, approx_ref[0]), f"{phase}: the traced approximate replay differs from eager")
+    traced = {"approximate": {"vs_eager_equal": True},
+              "exact": {"vs_eager": check_graph_equals_eager(f"{phase} traced", exact_got, exact_ref)}}
+    # The same replay traced again: how many K1 / K1' kernels each trace holds.
+    retraced = [traced_launches(lambda: approx(True, 8))[1] for _ in range(2)]
+    for name, got, want in (("approximate", approx_launches, 2 * hp.nb_nodes),
+                            ("exact", exact_launches, 2 * hp.nb_nodes * tiers_of(exact_ref))):
+        check(0 < got[mine] <= want and got[1 - mine] == 0,
+              f"{phase}: the trace of the {name} replay holds (K1, K1') {got}, for {want} in its graphs")
+        traced[name].update(kernels=got, expected=want)
+    traced["approximate"]["retraced"] = retraced
+    check(approx_wrappers == (0, 0) and exact_wrappers == (0, 0),
+          f"{phase}: the replays went through the wrappers: {approx_wrappers}, {exact_wrappers}")
+    check(not bool(jle.any()) and bool(torch.isfinite(sols).all()), f"{phase}: bad approximate solutions")
+    # The traces last: the profiler's tracing may stay attached to the process.
+    profiles = {"eager": profile_solve(lambda: solve(False)), "graph": profile_solve(lambda: solve(True))}
+    slv.use_graphs = True
+    for name, prof in profiles.items():  # the tracer slows the host: the idle share at the untraced median too
+        if prof["device_ms"] != "not measured":
+            prof["idle_share_untraced"] = 1.0 - prof["device_ms"] / times[name]["median_ms"]
+    emit(phase, t0, n=N_POSES, **summary, tier_counts=tiers, tiers_run=tiers_run, graph_eager_atol=GRAPH_EAGER_ATOL,
+         graph_vs_eager=gaps, eager_tier_counts=[int(c) for c in eager[2].cpu()], capture=capture,
+         traced_replays=traced, wrapper_counts_on_replays=[approx_wrappers, exact_wrappers], wall=times, profile=profiles,
+         tier_skip=tier_skip, weight_swap={"keys_after_set_params": emptied, "graph_vs_eager": swap_gap,
+                                           "tier_counts": [int(c) for c in swap_graph[-1][2].cpu()],
+                                           "max_abs_moved_from_original": swap_moved},
+         approx_mean_pos_err_mm=1e3 * float(pos_err.mean()), cache_entries=len(slv._graphs))
+    return approx_launches[mine] + exact_launches[mine], first_call_launches[mine]
+
+
+def phase_graphs_paths(hp, solver, targets, targets_mb, dev):
+    """32. The callers of the tier graph and the other two programs, each
+    against the eager path. -> K1 kernels that ran on these paths' replays,
+    from their traces."""
+    from ikflow_tpu_torch.cli.common import timed_call_s
+    from ikflow_tpu_torch.cli.evaluate_cmd import _runtime_ms
+    from ikflow_tpu_torch.graphs import WARMUP_CALLS
+    from ikflow_tpu_torch.parallel.fleet import solve_exact_megabatch, solve_exact_sharded
+    from ikflow_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    robot, report, launches = solver.robot, {}, 0
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    # The megabatch: the eager compact run, then each policy on the graphs:
+    # the warm-up runs (the first on a fresh cache's keys), a timed run and
+    # a traced one that counts the kernels the replays ran.
+    mb_kw = dict(seed=0, pos_error_threshold=1e-3, rot_error_threshold=0.01, return_stats=True)
+    solver.use_graphs = False
+    eager_mb = solve_exact_megabatch(solver, targets_mb, **mb_kw)
+    solver.use_graphs = True
+    for policy in ("compact", "probe"):
+        kw = dict(mb_kw, retry_capacities=policy, capacity_cache=False)
+        warm_s = []
+        for _ in range(WARMUP_CALLS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            solve_exact_megabatch(solver, targets_mb, **kw)
+            warm_s.append(time.perf_counter() - t1)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        sols, valids, stats = solve_exact_megabatch(solver, targets_mb, **kw)
+        wall = time.perf_counter() - t1
+        (_, _, traced_stats), (k1, k1b), wrappers = traced_launches(
+            lambda: solve_exact_megabatch(solver, targets_mb, **kw))
+        if policy == "compact":
+            tier_runs = sum(t["chunks"] for t in traced_stats)
+        else:
+            tier_runs = sum(1 + sum(1 for c in chunk["tier_counts"][:-1] if c < chunk["rows"])
+                            for chunk in traced_stats)
+        check(0 < k1 <= 2 * hp.nb_nodes * tier_runs and k1b == 0,
+              f"graph megabatch {policy}: the trace shows K1 {k1} for {tier_runs} tier runs, K1' {k1b}")
+        summary = check_solutions(robot, sols, valids, targets_mb, 0.99, 0.01)
+        entry = {**summary, "warm_up_s": warm_s, "wall_s": wall, "sols_per_s": N_MEGABATCH / wall,
+                 "traced_kernel_launches": k1, "expected": 2 * hp.nb_nodes * tier_runs,
+                 "wrapper_counts_traced_run": wrappers, "tier_runs": tier_runs}
+        if policy == "compact":
+            gap = {"max_abs_diff": float(np.abs(sols - eager_mb[0]).max()),
+                   "valids_equal": bool((valids == eager_mb[1]).all())}
+            check(gap["valids_equal"] and gap["max_abs_diff"] <= GRAPH_EAGER_ATOL,
+                  f"graph megabatch compact vs eager: {gap}")
+            entry["graph_vs_eager"] = gap
+        report[f"megabatch_{policy}"] = entry
+        launches += k1
+
+    # The sharded solve on [cuda:0, cuda:0] against the unsharded graph
+    # solve; both replicas are the solver itself, so the shards share a key.
+    mesh = make_mesh([dev, dev])
+    unsharded = solver.generate_exact_ik_solutions(targets, generator=gen(46), **GRAPH_EXACT_KW)
+    for _ in range(WARMUP_CALLS):
+        solve_exact_sharded(solver, targets, mesh, generator=gen(46), **GRAPH_EXACT_KW)
+    sharded, (k1, _), wrappers = traced_launches(
+        lambda: solve_exact_sharded(solver, targets, mesh, generator=gen(46), **GRAPH_EXACT_KW))
+    gap = check_graph_equals_eager("sharded [cuda:0, cuda:0] vs unsharded", sharded, unsharded)
+    tiers_run = 1 + sum(1 for c in sharded[2][:-1].tolist() if c < N_POSES)
+    check(0 < k1 <= 2 * 2 * hp.nb_nodes * tiers_run,
+          f"sharded: the trace shows K1 {k1} for {tiers_run} tiers of 2 shards")
+    launches += k1
+    report["sharded"] = {
+        **gap, "tier_counts": [int(c) for c in sharded[2].cpu()], "traced_kernel_launches": k1,
+        "expected": 2 * 2 * hp.nb_nodes * tiers_run,
+        "wrapper_counts_traced_run": wrappers,
+        "unsharded": spread([timed_call_s(lambda: solver.generate_exact_ik_solutions(
+            targets, generator=gen(46), **GRAPH_EXACT_KW), dev) for _ in range(GRAPH_TIMED_RUNS)]),
+        "mesh2": spread([timed_call_s(lambda: solve_exact_sharded(solver, targets, mesh, generator=gen(46),
+                                                                  **GRAPH_EXACT_KW), dev)
+                         for _ in range(GRAPH_TIMED_RUNS)])}
+
+    # The approximate (detailed) and diverse programs against eager: each
+    # key's eager call, its capture and a replay.
+    def sample():
+        return (solver.generate_ik_solutions(targets, generator=gen(47), return_detailed=True),
+                solver.generate_diverse_ik_solutions(targets[0], 16, oversample=8, generator=gen(48)))
+
+    solver.use_graphs = False
+    ref = sample()
+    solver.use_graphs = True
+    for call in range(WARMUP_CALLS + 1):
+        got = sample()
+        check(all(torch.equal(a, b) for a, b in zip(ref[0], got[0])), f"approximate: graph call {call} vs eager differ")
+        check(torch.equal(ref[1], got[1]), f"diverse: graph call {call} vs eager differ")
+    report["approximate"] = {"equal": True, "fields": len(got[0]), "calls": WARMUP_CALLS + 1}
+    report["diverse"] = {"equal": True, "n": 16, "oversample": 8, "calls": WARMUP_CALLS + 1}
+
+    # evaluate's runtime column (100 solutions of one pose) on each path.
+    column = {}
+    for name, graphs in (("eager", False), ("graph", True)):
+        solver.use_graphs = graphs
+        t1 = time.perf_counter()
+        ms, method = _runtime_ms(solver, targets[0], 100, 0, True, 5)
+        column[name] = {"ms_per_100_solutions": ms, "methodology": method, "seconds": time.perf_counter() - t1}
+    solver.use_graphs = True
+    report["evaluate_runtime_column"] = column
+    emit("graphs_paths", t0, n=N_POSES, n_megabatch=N_MEGABATCH, graph_eager_atol=GRAPH_EAGER_ATOL,
+         cache_entries=len(solver._graphs), cache_captures=solver._graphs.captures,
+         cache_replays=solver._graphs.replays, capture_s=solver._graphs.capture_seconds, **report)
+    return launches
+
+
+def run_cli_memory(argv, graphs):
+    """``run_cli`` with every solver's graph switch set, after the card's
+    cache is emptied. -> (stdout lines, seconds, bytes reserved before, peak
+    bytes reserved, peak bytes allocated)."""
+    from ikflow_tpu_torch.solver import IKFlowSolver
+
+    IKFlowSolver.use_graphs = graphs
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_reserved()
+        lines, _, _, sec = run_cli(argv)
+        return lines, sec, base, torch.cuda.max_memory_reserved(), torch.cuda.max_memory_allocated()
+    finally:
+        IKFlowSolver.use_graphs = True
+
+
+def phase_graphs_cli(targets):
+    """32 (continued). The command line as users run it, on the graphs,
+    against the same commands on the eager path: ``solve --exact`` one-shot
+    (each call builds a fresh solver, so each key is called once: its time
+    should not move), ``evaluate --do_refinement`` and ``benchmark`` (the
+    runtime curve and the 100000-pose megabatch with --capacity probe), each
+    with the card's peak reserved memory beside the eager run's."""
+    from ikflow_tpu_torch import config
+
+    t0 = time.perf_counter()
+    pose = targets[0].cpu().numpy()
+    solve_argv = ["solve", "--model_name", MODEL, "--pose", *[repr(float(v)) for v in pose], "-n", "16", "--exact"]
+    report = {"solve_exact_one_shot": {"eager_s": [], "graph_s": []}}
+    for turn in range(2 * CLI_ONE_SHOT_RUNS):  # in turns, each path first in half of them
+        for name, graphs in (("eager", False), ("graph", True))[::1 - 2 * (turn % 2)]:
+            lines, sec, *_ = run_cli_memory(solve_argv, graphs)
+            report["solve_exact_one_shot"][f"{name}_s"].append(sec)
+            report["solve_exact_one_shot"].setdefault(f"{name}_lines", lines)
+    one_shot = report["solve_exact_one_shot"]
+    check(one_shot.pop("eager_lines") == one_shot.pop("graph_lines"), "solve --exact: graph and eager lines differ")
+    with tempfile.TemporaryDirectory(prefix="ikflow_chip_graphs_cli_") as tmp:
+        config.CACHE_DIR = os.path.join(tmp, "cache")
+        config.DATASET_DIR = os.path.join(config.CACHE_DIR, "datasets")
+        config.MODELS_DIR = os.path.join(config.CACHE_DIR, "models")  # empty: the shipped weights are found
+        commands = {
+            "evaluate_refinement": ["evaluate", "--model_name", MODEL, "--do_refinement",
+                                    "--performances_file", os.path.join(tmp, "unused.md")],
+            "benchmark_curve": ["benchmark", "--model_name", MODEL, "--batch_sizes", "1", "10", "100", "1000",
+                                "--mode", "both", "--capacity", "probe"],
+            "benchmark_megabatch": ["benchmark", "--model_name", MODEL, "--megabatch", str(N_MEGABATCH),
+                                    "--capacity", "probe"],
+        }
+        for name, argv in commands.items():
+            runs = {}
+            for path, graphs in (("eager", False), ("graph", True)):
+                lines, sec, base, reserved, allocated = run_cli_memory(argv, graphs)
+                runs[path] = {"seconds": sec, "reserved_before_bytes": base, "max_reserved_bytes": reserved,
+                              "max_allocated_bytes": allocated, "lines": lines}
+            eager, graph = runs["eager"].pop("lines"), runs["graph"].pop("lines")
+            if name == "evaluate_refinement":
+                acc = {p: {k: v for k, v in parse_accuracy(lines).items() if "runtime" not in k}
+                       for p, lines in (("eager", eager), ("graph", graph))}
+                check(acc["graph"] == acc["eager"] and acc["graph"]["exact-IK valid fraction"] >= 0.99,
+                      f"evaluate --do_refinement on the graphs: {acc}")
+                runs["accuracy"] = acc["graph"]
+            else:
+                keep = ("mode", "batch", "valid_fraction", "uncapped_valid_fraction", "capacity", "warm_valid_fraction")
+                rows = {p: [{k: r[k] for k in keep if k in r} for r in json_rows(lines)]
+                        for p, lines in (("eager", eager), ("graph", graph))}
+                check(rows["graph"] == rows["eager"] and rows["graph"],
+                      f"{name}: the graph rows differ from the eager rows: {rows}")
+                for row in rows["graph"]:
+                    if row["mode"] == "exact_megabatch":
+                        check(min(row["valid_fraction"], row["warm_valid_fraction"]) >= 0.99, f"{name}: {row}")
+                    elif row["mode"] == "exact" and row["batch"] >= 100:
+                        check(row["valid_fraction"] >= 0.99, f"{name} on the graphs: {row}")
+                runs["rows"] = json_rows(graph)
+            report[name] = runs
+    emit("graphs_cli", t0, **report)
+
+
+def graph_phases(hp, solver, solver_bf16, targets, targets_mb, dev):
+    """31-32 on the graph path (the library's default again). -> {kernel:
+    (its kernels that the replayed main path ran, from the trace; the
+    launches its wrapper counted on a fresh cache's first calls)}."""
+    from ikflow_tpu_torch.flow.fused_subnet import fused_mlp, fused_mlp_bf16
+    from ikflow_tpu_torch.solver import IKFlowSolver
+
+    t_all = time.perf_counter()
+    IKFlowSolver.use_graphs = True
+    main = {"fused_mlp": phase_graphs_exact("graphs_exact", solver, fused_mlp, hp, targets, dev),
+            "fused_mlp_bf16": phase_graphs_exact("graphs_exact_bf16", solver_bf16, fused_mlp_bf16, hp, targets, dev)}
+    phase_graphs_paths(hp, solver, targets, targets_mb, dev)
+    phase_graphs_cli(targets)
+    print(json.dumps({"graph_phases_seconds": round(time.perf_counter() - t_all, 3)}), flush=True)
+    return main
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device available; this script runs on the GPU only")
@@ -1503,6 +1998,8 @@ def main():
     from ikflow_tpu_torch.solver import IKFlowSolver
 
     t_all = time.perf_counter()
+    # Phases 5-30 drive the eager path, the reference of phases 31-32.
+    IKFlowSolver.use_graphs = False
 
     # Build: one nvcc per source and g++ for the float64 oracle, all started
     # together, with the kernels' resource reports.
@@ -1856,20 +2353,25 @@ def main():
     mesh_launches, max_err_mesh, max_err_mesh_b = multi_device_phases(
         hp, solver, solver_bf16, targets, targets_mb, exact_kw, dev, close_fp32, close_bf16)
 
+    # 31-32. The captured programs: the main path on the graphs.
+    graph_main = graph_phases(hp, solver, solver_bf16, targets, targets_mb, dev)
+
     print(json.dumps({"kernels": [
         kernel_entry("fused_mlp", "bf16_hidden=False: fp32 contract, hidden layers 3xTF32 on wgmma m64n128k8 "
                      "with packed tf32 hi/lo weight planes, 64-row tiles split over 8-CTA clusters, "
                      "a staging warpgroup, first/last layer fp32 FFMA",
-                     "ikflow_tpu_torch/csrc/fused_mlp.cu", main_path_launches,
+                     "ikflow_tpu_torch/csrc/fused_mlp.cu", graph_main["fused_mlp"][0],
                      max(max_err, max_err_p, max_err_t, max_err_m, max_err_mesh), headline,
-                     training_launches["fused_mlp"], cli_launches, mesh_launches["fused_mlp"]),
+                     training_launches["fused_mlp"], cli_launches, mesh_launches["fused_mlp"], main_path_launches,
+                     graph_main["fused_mlp"][1]),
         kernel_entry("fused_mlp_bf16", "bf16_hidden=True: hidden layers bf16 on wgmma m64n128k16 with fp32 "
                      "accumulation, 64-row tiles split over 8-CTA clusters, weights packed once and streamed by "
                      "cp.async.bulk into a 4-slot mbarrier ring, activations pulled from the peers over DSMEM by a "
                      "staging warpgroup, two CTAs per SM, first/last layer fp32 FFMA",
-                     "ikflow_tpu_torch/csrc/fused_mlp_bf16.cu", main_path_launches_bf16,
+                     "ikflow_tpu_torch/csrc/fused_mlp_bf16.cu", graph_main["fused_mlp_bf16"][0],
                      max(max_err_b, max_err_pb, max_err_tb, max_err_mesh_b),
-                     headline_b, training_launches["fused_mlp_bf16"], 0, mesh_launches["fused_mlp_bf16"]),
+                     headline_b, training_launches["fused_mlp_bf16"], 0, mesh_launches["fused_mlp_bf16"],
+                     main_path_launches_bf16, graph_main["fused_mlp_bf16"][1]),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"total_seconds": round(time.perf_counter() - t_all, 3)}), flush=True)

@@ -24,6 +24,7 @@ import argparse
 import json
 
 from ikflow_tpu_torch.cli.common import add_device_argument, solver_from_args, timed_call_s
+from ikflow_tpu_torch.graphs import WARMUP_CALLS
 
 EXACT_POS_TOL = 1e-3
 EXACT_ROT_TOL = 0.01
@@ -67,9 +68,11 @@ def add_parser(sub):
 
 
 def _timed(fn, k, device) -> float:
-    """Median seconds of ``k`` calls of ``fn`` after one warm-up call, each
-    call timed with the device's queue drained before and after."""
-    fn()
+    """Median seconds of ``k`` calls of ``fn`` after the warm-up calls (on a
+    card the graphs' eager and capturing calls), each call timed with the
+    device's queue drained before and after."""
+    for _ in range(WARMUP_CALLS):
+        fn()
     ts = sorted(timed_call_s(fn, device) for _ in range(k))
     return ts[len(ts) // 2]
 

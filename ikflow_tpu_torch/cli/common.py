@@ -31,17 +31,20 @@ def solver_from_args(args: argparse.Namespace):
 
 def timed_call_s(fn, device) -> float:
     """Wall seconds of one ``fn()``, the card's queue drained before and
-    after (on a CUDA device, between CUDA events)."""
+    after (on a CUDA device, between CUDA events on that device's stream)."""
     import torch
 
     if device.type != "cuda":
         t0 = time.perf_counter()
         fn()
         return time.perf_counter() - t0
+    # The events go on ``device``'s own stream: a bare ``record()`` uses the
+    # current device's, which is another card's under ``--device cuda:N``.
+    stream = torch.cuda.current_stream(device)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize(device)
-    start.record()
+    start.record(stream)
     fn()
-    end.record()
-    end.synchronize()
+    end.record(stream)
+    torch.cuda.synchronize(device)
     return start.elapsed_time(end) / 1e3

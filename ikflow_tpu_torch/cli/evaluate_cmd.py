@@ -11,12 +11,15 @@ pose; ``--all`` evaluates every registered model into a markdown table.
 
 The runtime is differenced over chained solves (``utils.benchtools``), which
 cancels what both chain lengths pay once; on a card each solve in the chain
-still holds the host's time to launch it, so the figure is the time per
-eager call, not device time alone. Where the difference is noise, the chains
-grow 8x, then 8x again, as in the JAX package, as long as the longer chains
-are predicted (from the last step's cost) to fit RUNTIME_ESCALATION_BUDGET_S;
-then it falls back to per-call timing between CUDA events after a warm-up,
-labelled so.
+still holds the host's time to launch it (one graph replay, with its input
+copies and output clones, where the solver serves through graphs), so the
+figure is the time per call, not device time alone. The chains' warm-up
+runs (two calls each or more) have the timed calls' shapes, so they also
+make each key's eager call and capture its graph. Where the difference is
+noise, the chains grow 8x, then 8x again, as in the JAX package, as long as
+the longer chains are predicted (from the last step's cost) to fit
+RUNTIME_ESCALATION_BUDGET_S; then it falls back to per-call timing between
+CUDA events after the warm-up calls, labelled so.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import time
 from typing import Dict
 
 from ikflow_tpu_torch.cli.common import add_device_argument, solver_from_args, timed_call_s
+from ikflow_tpu_torch.graphs import WARMUP_CALLS
 
 DEFAULT_LATENT_SCALE = 0.75
 DEFAULT_LATENT_DISTRIBUTION = "gaussian"
@@ -64,11 +68,11 @@ def _runtime_ms(solver, target, n_samples: int, seed: int, allow_uninitialized: 
         except DegenerateTimingError:
             last = (scale_iters, time.perf_counter() - t0)
     times = []
-    for i in range(max(runtime_k, 1) + 1):  # the first call warms up
+    for i in range(max(runtime_k, 1) + WARMUP_CALLS):  # the first calls warm up (eager, then the capture)
         g = generator(solver.device, seed, 2, i)
         times.append(timed_call_s(lambda: solver.generate_ik_solutions(
             target, n=n_samples, generator=g, allow_uninitialized=allow_uninitialized), solver.device))
-    times = times[1:]
+    times = times[WARMUP_CALLS:]
     return 1000.0 * sum(times) / len(times), RUNTIME_PER_CALL
 
 

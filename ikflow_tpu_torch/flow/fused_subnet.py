@@ -27,6 +27,9 @@ all but the last, for a (B, in) fp32 input.
 Both kernels are built by nvcc into C-ABI libraries and called through ctypes
 on PyTorch's current stream. A wrapper takes its plain version only for
 tensors on the CPU; for a CUDA tensor it launches its kernel or raises.
+Each wrapper's ``launches`` counts the launches it makes; under a CUDA graph
+capture it records the kernel into the graph and counts nothing, and a
+graph's replays do not pass through it.
 """
 
 from __future__ import annotations
@@ -263,12 +266,12 @@ def fused_mlp(x: torch.Tensor, layers: Sequence[Dict[str, torch.Tensor]]) -> tor
     lib = _library("fused_mlp", "ikflow_fused_mlp", 3, "ikflow_cuda_error_string")
     out = _launch(lib, "ikflow_fused_mlp", "ikflow_cuda_error_string", x, layers,
                   _pointers(layers, "w"), _pointers(layers, "wp"), _pointers(layers, "b"))
-    if x.shape[0]:
+    if x.shape[0] and not torch.cuda.is_current_stream_capturing():
         fused_mlp.launches += 1
     return out
 
 
-fused_mlp.launches = 0  # kernel launches; the plain CPU path does not count
+fused_mlp.launches = 0  # kernel launches; neither the plain CPU path nor a graph capture counts
 
 
 def _check_bf16(x: torch.Tensor, layers: Sequence[Dict[str, torch.Tensor]]) -> None:
@@ -289,9 +292,9 @@ def fused_mlp_bf16(x: torch.Tensor, layers: Sequence[Dict[str, torch.Tensor]]) -
     lib = _library("fused_mlp_bf16", "ikflow_fused_mlp_bf16", 3, "ikflow_bf16_cuda_error_string")
     out = _launch(lib, "ikflow_fused_mlp_bf16", "ikflow_bf16_cuda_error_string", x, layers,
                   _pointers(layers, "w"), _pointers(layers, "wp"), _pointers(layers, "b"))
-    if x.shape[0]:
+    if x.shape[0] and not torch.cuda.is_current_stream_capturing():
         fused_mlp_bf16.launches += 1
     return out
 
 
-fused_mlp_bf16.launches = 0  # kernel launches; the plain CPU path does not count
+fused_mlp_bf16.launches = 0  # kernel launches; neither the plain CPU path nor a graph capture counts

@@ -11,7 +11,9 @@ generator, and each shard takes its rows of them, so a solve on N entries
 equals the solve on one (JAX gets this from drawing over the global array).
 Every shard's tier is dispatched before the host's one check of the tier
 skip. One host thread launches for every device, so the shards of a tier run
-one after another on the host's side.
+one after another on the host's side (on a card, once captured, each
+shard's tier is one replay of its replica's graph, which takes the shard's
+rows of the draws as its inputs).
 
 ``solve_exact_megabatch`` streams fixed-shape chunks, with each
 retry-capacity policy:
@@ -37,7 +39,8 @@ The merge is first-valid-wins, so a re-solved pose is never downgraded.
   left onto real poses instead of padding; the overlap is merged
   first-valid-wins.
 - A chunk is one single-tier solve (one repeat count, no host
-  synchronisation inside). Its generator is derived from
+  synchronisation inside; on a card, once captured, one replay of the
+  solver's tier graph for the chunk's shape). Its generator is derived from
   (seed, tier salt, chunk start), the counterpart of ``fold_in``.
 - A chunk's (solutions, valids) leave the card as one packed tensor, copied
   into pinned host memory with ``non_blocking=True``; collection waits until
@@ -61,6 +64,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ikflow_tpu_torch.graphs import WARMUP_CALLS
 from ikflow_tpu_torch.parallel.mesh import Mesh, make_mesh, pad_to_multiple, split_bounds
 from ikflow_tpu_torch.solver import derive_retry_capacities
 
@@ -217,9 +221,9 @@ def _to_host(packed: torch.Tensor):
     if packed.device.type != "cuda":
         return packed, None
     host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
-    host.copy_(packed, non_blocking=True)
+    host.copy_(packed, non_blocking=True)  # queued on the current stream of packed's device
     event = torch.cuda.Event()
-    event.record()
+    event.record(torch.cuda.current_stream(packed.device))
     return host, event
 
 
@@ -468,7 +472,8 @@ def scaling_efficiency(
     ``device_counts`` (None: all of them) -> [{devices, seconds, sols_per_s,
     efficiency}], efficiency = T_d / (d * T_1) against the first count.
 
-    Each count gets a warm-up solve, then ``reps`` timed solves (median).
+    Each count gets ``graphs.WARMUP_CALLS`` warm-up solves, then ``reps``
+    timed solves (median).
     Where ``devices`` repeats a card, its replicas share that card, and the
     rows show the mechanics, not scaling; the same holds on the CPU."""
     devices = list(make_mesh(devices).devices)
@@ -480,7 +485,8 @@ def scaling_efficiency(
     for dc in device_counts:
         dc = len(devices) if dc is None else dc
         mesh = make_mesh(devices[:dc])
-        solve_exact_sharded(solver, poses, mesh=mesh, generator=g, **solve_kwargs)  # warm-up
+        for _ in range(WARMUP_CALLS):  # on a card the shards' eager and capturing calls
+            solve_exact_sharded(solver, poses, mesh=mesh, generator=g, **solve_kwargs)
         ts = sorted(_timed_solve_s(lambda: solve_exact_sharded(solver, poses, mesh=mesh, generator=g,
                                                                **solve_kwargs), mesh) for _ in range(reps))
         sec = ts[len(ts) // 2]

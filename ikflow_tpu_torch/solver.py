@@ -13,6 +13,18 @@ valid tile per pose. Retry tiers compact the still-invalid poses to the front
 with a stable argsort and retry the first ``ceil(capacity * n)`` of them.
 Where the JAX package skips a tier with ``lax.cond`` once every pose is
 valid, the port asks the host (one synchronisation per tier).
+
+Where the JAX package compiles each entry point once per shape (``jax.jit``),
+a solver on a card replays captured CUDA graphs (``graphs.GraphCache``, one
+per solver, emptied with every new parameter set): one per exact tier (the
+tile, the flow inverse, the clamp, the LM steps and the first-valid
+reduction), per approximate sample (the inverse, the clamp and, detailed,
+the grading) and per diverse selection. A key's first call runs eagerly, its
+second captures the graph, and later calls replay it. The draws are made
+eagerly from the generator, in the eager path's order, and handed to the
+program as inputs, so the two paths give the same results. The eager bodies
+are the CPU's path and the reference; ``use_graphs = False`` (on a solver,
+or on the class for solvers built elsewhere) runs them on the card too.
 """
 
 from __future__ import annotations
@@ -26,6 +38,7 @@ from ikflow_tpu_torch.config import disable_tf32, resolve_device
 from ikflow_tpu_torch.evaluation import SolutionEvaluation, evaluate_solutions
 from ikflow_tpu_torch.flow.model import GlowFlow, build_flow
 from ikflow_tpu_torch.flow.params import FlowHyperParams
+from ikflow_tpu_torch.graphs import GraphCache
 from ikflow_tpu_torch.lm import refine
 from ikflow_tpu_torch.robots.chain import KinematicChain
 
@@ -54,18 +67,20 @@ def select_diverse(candidates: torch.Tensor, n: int) -> torch.Tensor:
     selection in joint space, seeded with candidate 0: each pick is the first
     candidate of largest distance to the picked set, and a picked candidate's
     distance is set to -inf. A fixed-shape loop on the candidates' device,
-    with no host synchronisation per pick."""
+    with no host synchronisation per pick, so a CUDA graph may capture it
+    (the pick is an index tensor throughout: ``d[nxt]`` would read it on the
+    host)."""
     m = candidates.shape[0]
     if not 1 <= n <= m:
         raise ValueError(f"cannot pick {n} of {m} candidates")
     d = torch.linalg.norm(candidates[:, None, :] - candidates[None, :, :], dim=-1)
     chosen = torch.zeros((n,), dtype=torch.long, device=candidates.device)
     min_d = d[0].clone()
-    min_d[0] = -math.inf
+    min_d[0].fill_(-math.inf)  # a fill, not a copy from the host
     for i in range(1, n):
-        nxt = torch.argmax(min_d)  # first index of the maximum
-        chosen[i] = nxt
-        min_d = torch.minimum(min_d, d[nxt]).index_fill_(0, nxt.reshape(1), -math.inf)
+        nxt = torch.argmax(min_d).reshape(1)  # first index of the maximum
+        chosen[i] = nxt[0]
+        min_d = torch.minimum(min_d, d.index_select(0, nxt)[0]).index_fill_(0, nxt, -math.inf)
     return chosen
 
 
@@ -105,6 +120,10 @@ class IKFlowSolver:
     ``"cpu"`` to run on the CPU.
     """
 
+    # On a card, serve through captured CUDA graphs; False runs the eager
+    # bodies there (set on one solver, or on the class for every solver).
+    use_graphs = True
+
     def __init__(
         self,
         hyper_parameters: FlowHyperParams,
@@ -129,6 +148,7 @@ class IKFlowSolver:
         # by (weights_version, solve protocol): new weights miss every entry.
         self.capacity_cache: Dict[tuple, tuple] = {}
         self._replicas: Dict[torch.device, "IKFlowSolver"] = {}
+        self._graphs: Optional[GraphCache] = None
         if params is None:
             params = self._flow.init(torch.Generator(device=self.device).manual_seed(seed))
         self.params = params
@@ -141,10 +161,13 @@ class IKFlowSolver:
     @params.setter
     def params(self, params) -> None:
         # The kernels' copy (packed bf16 hidden weights for a bf16 flow) is
-        # rebuilt with every new parameter set, so it can never be stale.
+        # rebuilt with every new parameter set, so it can never be stale; the
+        # captured graphs point into the old copy and are dropped.
         self._params = params
         self._kernel_params = self._flow.kernel_params(params)
         self.weights_version += 1
+        if self._graphs is not None:
+            self._graphs.clear()
 
     def set_params(self, params) -> None:
         """Install trained parameters and mark the weights loaded."""
@@ -191,6 +214,18 @@ class IKFlowSolver:
         q, _ = self._flow.inverse(self._kernel_params, latent, cond)
         return q[:, : self.ndof]
 
+    def _graph_cache(self, x: torch.Tensor) -> Optional[GraphCache]:
+        """The cache of captured programs for work on ``x``, or None for the
+        eager path: on the CPU, with ``use_graphs`` off, or for empty work."""
+        if not self.use_graphs or x.device.type != "cuda" or x.numel() == 0:
+            return None
+        if self._graphs is None:
+            self._graphs = GraphCache(self.device)
+        return self._graphs
+
+    def _replay(self, graphs: GraphCache, key: tuple, fn, inputs) -> Tuple[torch.Tensor, ...]:
+        return graphs.run(key + (self.weights_version, self.device), fn, inputs)
+
     # ------------------------------------------------------------------
     def generate_ik_solutions(
         self,
@@ -231,12 +266,25 @@ class IKFlowSolver:
             if tuple(latent.shape) != (n, self._network_width):
                 raise ValueError(f"latent must be ({n}, {self._network_width}), got {tuple(latent.shape)}")
 
+        clamp, detailed = bool(clamp_to_joint_limits), bool(return_detailed)
+        graphs = self._graph_cache(y_batch)
+        if graphs is None:
+            out = self._generate_program(y_batch, latent, clamp, detailed)
+        else:
+            out = self._replay(graphs, ("generate", n, clamp, detailed),
+                               lambda yb, z: self._generate_program(yb, z, clamp, detailed), (y_batch, latent))
+        return out if detailed else out[0]
+
+    def _generate_program(self, y_batch, latent, clamp: bool, detailed: bool) -> Tuple[torch.Tensor, ...]:
+        """The inverse, the clamp and, detailed, the grading (the JAX
+        package's ``_cached_generate`` body). -> (solutions,) or (solutions,
+        pos_errors, rot_errors, joint_limits_exceeded, self_colliding)."""
         solutions = self._inverse_q(latent, self._conditional(y_batch))
-        if clamp_to_joint_limits:
+        if clamp:
             solutions = self._robot.clamp_to_joint_limits(solutions)
-        if return_detailed:
+        if detailed:
             return (solutions, *evaluate_solutions(self._robot, y_batch, solutions))
-        return solutions
+        return (solutions,)
 
     # ------------------------------------------------------------------
     def generate_diverse_ik_solutions(
@@ -259,7 +307,11 @@ class IKFlowSolver:
             y, n=n * oversample, latent_scale=latent_scale, generator=generator,
             allow_uninitialized=allow_uninitialized,
         )
-        return candidates[select_diverse(candidates, n)]
+        graphs = self._graph_cache(candidates)
+        if graphs is None:
+            return candidates[select_diverse(candidates, n)]
+        return self._replay(graphs, ("diverse", n * oversample, n), lambda c: c[select_diverse(c, n)],
+                            (candidates,))[0]
 
     # ------------------------------------------------------------------
     def generate_exact_ik_solutions(
@@ -324,7 +376,34 @@ class IKFlowSolver:
         """One tier: tile the poses r times (tile-major), draw flow seeds,
         refine, and keep the earliest valid tile per pose. ``latent`` ((r * n,
         D), unscaled) and ``restart_noise`` ((n_steps, r * n, ndof)) replace
-        the draws from ``g`` when given."""
+        the draws from ``g`` when given.
+
+        On a card the tier is one captured graph per (poses, r, tolerances,
+        steps, damping, latent scale). Its draws are made first, in the eager
+        path's order (the latents, then one restart draw per LM step), so
+        both paths draw the same numbers."""
+        graphs = self._graph_cache(poses)
+        if graphs is None:
+            return self._tier_program(poses, g, r, pos_tol, rot_tol, n_steps, lambd, latent_scale, latent,
+                                      restart_noise)
+        n, rows = poses.shape[0], r * poses.shape[0]
+        if latent is None:
+            latent = torch.randn((rows, self._network_width), generator=g, device=self.device)
+        if restart_noise is None and n_steps:
+            restart_noise = torch.stack([torch.rand((rows, self.ndof), generator=g, device=self.device)
+                                         for _ in range(n_steps)])
+        tol = (float(pos_tol), float(rot_tol), int(n_steps), float(lambd), float(latent_scale))
+
+        def program(p, z, *noise):
+            return self._tier_program(p, None, r, *tol, latent=z, restart_noise=noise[0] if noise else None)
+
+        inputs = (poses, latent) if restart_noise is None else (poses, latent, restart_noise)
+        return self._replay(graphs, ("tier", n, r) + tol, program, inputs)
+
+    def _tier_program(self, poses, g, r, pos_tol, rot_tol, n_steps, lambd, latent_scale, latent=None,
+                      restart_noise=None):
+        """``_solve_tier``'s eager body (the body of its graph, with the
+        draws given)."""
         n, ndof = poses.shape[0], self.ndof
         poses_tiled = poses.repeat(r, 1)
         if latent is None:
@@ -360,6 +439,7 @@ class IKFlowSolver:
             rep._weights_loaded = self._weights_loaded
             rep.capacity_cache = self.capacity_cache
             self._replicas[device] = rep
+        rep.use_graphs = self.use_graphs
         return rep
 
     # ------------------------------------------------------------------

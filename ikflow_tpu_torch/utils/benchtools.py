@@ -8,8 +8,9 @@ before it has finished, and ``fn`` reads the result once, at the end (the
 exact solve's host tier skip also waits for the card once per tier).
 ``profiling.measure_per_iter_s`` differences two chain lengths. What both
 lengths pay once cancels, but on a local card each iteration still holds the
-host's time to launch one eager solve: where the solve is host-bound, that
-time is what the difference measures.
+host's time to launch one solve (a few graph replays where the solver serves
+through graphs, thousands of kernels where it runs eagerly): where the solve
+is host-bound, that time is what the difference measures.
 
 The chains pass ``allow_uninitialized=True``: random weights do the same
 work, so callers that report the rate state where the weights came from.

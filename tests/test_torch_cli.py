@@ -65,9 +65,36 @@ def test_solve_lines_match_jax(capsys, tiny_default, form):
         assert all(re.match(r"\[(ok|FAIL)\] \[", line) for line in port.splitlines())
 
 
-def test_evaluate_lines_match_jax(capsys, tiny_default):
+def _virtual_runtime_clock(monkeypatch):
+    """Both packages' differenced timing on a virtual clock: each chained
+    call still runs its solves, then advances the clock by 1 ms per
+    iteration, so the first chain lengths are accepted. On a busy CPU the
+    host clock's noise made both packages lengthen their chains (x8, x64,
+    x256) for minutes; the lines compared here mask the runtime's value."""
+    import ikflow_tpu.utils.profiling as jax_profiling
+
+    for module in (profiling, jax_profiling):
+        def virtual(build, label, measure=module.measure_per_iter_s, **kw):
+            clock = [0.0]
+
+            def timed_build(iters):
+                fn = build(iters)
+
+                def run(i):
+                    fn(i)
+                    clock[0] += 1e-3 * iters
+
+                return run
+
+            return measure(timed_build, label, time_fn=lambda: clock[0], **kw)
+
+        monkeypatch.setattr(module, "measure_per_iter_s", virtual)
+
+
+def test_evaluate_lines_match_jax(capsys, tiny_default, monkeypatch):
     """The same lines, but for the runtime's methodology, which names how the
     port timed it."""
+    _virtual_runtime_clock(monkeypatch)
     argv = ["evaluate", "--robot_name", "panda", "--uninitialized", "--testset_size", "8",
             "--n_samples_for_errors", "2", "--runtime_k", "1", "--n_runtime_samples", "4"]
     port, jax_out = _both(capsys, argv)

@@ -259,10 +259,12 @@ def test_training_stays_on_the_card_and_validates_through_k1(cuda):
 @pytest.mark.parametrize("bf16", [False, True], ids=["k1", "k1b"])
 def test_sharded_solve_on_two_replicas_of_one_card(cuda, bf16):
     """``solve_exact_sharded`` on [cuda:0, cuda:0] launches its kernel once
-    per shard and subnet and agrees with the unsharded solve: flow seeds
-    within 1e-5 (K1 and K1' compute each row alike at any row count), valid
-    shares within 0.05. A solver on the CPU with a card mesh gets a replica on
-    the card that shares its weights version and is rebuilt for new weights."""
+    per shard and subnet (counted on the eager path: the wrappers do not see
+    a graph's replay, and the two shards share one graph key) and agrees with
+    the unsharded solve: flow seeds within 1e-5 (K1 and K1' compute each row
+    alike at any row count), valid shares within 0.05. A solver on the CPU
+    with a card mesh gets a replica on the card that shares its weights
+    version and is rebuilt for new weights."""
     import dataclasses
 
     from ikflow_tpu_torch.parallel import fleet
@@ -278,11 +280,13 @@ def test_sharded_solve_on_two_replicas_of_one_card(cuda, bf16):
                                                                joint_limit_eps=0.02))
     kw = dict(repeat_counts=(1,), n_opt_steps_max=0, allow_uninitialized=True)
     mesh = make_mesh([cuda, cuda])
+    solver.use_graphs = False
     before = kernel.launches
     seeds2, _ = fleet.solve_exact_sharded(solver, poses, mesh, generator=torch.Generator(device=cuda).manual_seed(2),
                                           **kw)
     torch.cuda.synchronize()
     assert kernel.launches - before == 2 * 2 * hp.nb_nodes
+    solver.use_graphs = True
     seeds1, _ = solver.generate_exact_ik_solutions(poses, generator=torch.Generator(device=cuda).manual_seed(2), **kw)
     torch.testing.assert_close(seeds2, seeds1, atol=1e-5, rtol=0)
     kw = dict(repeat_counts=(1, 3), n_opt_steps_max=12, pos_error_threshold=1e-2, rot_error_threshold=0.1,
