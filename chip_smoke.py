@@ -138,12 +138,30 @@ import faulthandler; faulthandler.dump_traceback_later(600, exit=True)  # noqa: 
 #     and ``benchmark`` (curve and megabatch, --capacity probe) with equal
 #     results and the card's peak reserved memory on both.
 #
+# 33. graphs_training: the trainer's captured programs (``Trainer.use_graphs``,
+#     off for phases 5-30) against its eager path, from the same seeds:
+#     ``fit_on_device`` of panda__full__sigmoid's architecture at full width
+#     from ``flow.init`` (batch 512, adamw, phase 13's resident rows), fp32
+#     over GRAPH_TRAIN_WINDOWS windows of 100 steps and bf16 over windows of
+#     50, on each path, with equal window losses and parameters bit for bit,
+#     ms per step (CUDA events), and the last window traced (device ms, idle
+#     share, host launch calls and kernels per step), the capture and the
+#     peak memory; three validations in one run's scope equal to eager, the
+#     wrappers counting the first (eager) call only, and a replay traced with
+#     the counts set to 0 (2 x blocks K1 or K1' kernels); ``fit`` on host
+#     batches for FIT_STEPS steps on both paths (equal metrics and
+#     parameters); then the ``train`` command on the graphs from the shipped
+#     weights, as phase 15 runs it eagerly: its export through the 13.0 mm
+#     gate, served back and solving >= 99% of the 1000 poses exactly.
+#
 # The kernels line's ``launches`` is the count of each kernel in the trace
 # of the replayed main path of phase 31; ``eager_main_path_launches`` is
 # what the wrappers counted over the eager main path of phases 5-6 and 9,
-# and ``graph_first_call_launches`` over a fresh cache's first calls.
+# ``graph_first_call_launches`` over a fresh cache's first calls, and
+# ``training_graph_launches`` the kernels in a validation replay's trace
+# (phase 33).
 #
-# Phases 13-15 and 17-30 write every file (cache, datasets, run directory,
+# Phases 13-15, 17-30 and 33 write every file (cache, datasets, run directory,
 # checkpoints, the export, the performances table, the HTML scenes) under
 # temporary directories that are removed at the end.
 #
@@ -236,6 +254,10 @@ FK_DATASET_POS = 1e-5  # metres: stored poses vs the float64 FK of their rows
 FK_DATASET_ROT = 1e-4  # radians
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_WINDOW = 300, 512, 100
 TRAIN_BF16_STEPS, TRAIN_BF16_WINDOW = 100, 50
+# Phase 33: each path runs this many windows (the first holds the eager first
+# step and the capture, the last is traced), and fit FIT_STEPS host batches.
+GRAPH_TRAIN_WINDOWS = 4
+FIT_STEPS, N_FIT_ROWS = 20, 100_000
 WARM_STEPS = 200
 WARM_VAL_RATIO = 0.10  # the exported weights' val l2 error within 10% of the shipped weights'
 # The serving command line (phases 17-23).
@@ -691,7 +713,7 @@ def kernel_rows(kernel, plain, bound, params, batches, gen, close, contrast=None
 
 
 def kernel_entry(name, specialization, source, launches, max_err, headline, training_launches, cli_launches,
-                 mesh_launches, eager_launches, first_call_launches):
+                 mesh_launches, eager_launches, first_call_launches, training_graph_launches):
     return {
         "name": name,
         "specialization": specialization,
@@ -711,14 +733,39 @@ def kernel_entry(name, specialization, source, launches, max_err, headline, trai
         "mesh_launches": mesh_launches,
         "eager_main_path_launches": eager_launches,
         "graph_first_call_launches": first_call_launches,
+        "training_graph_launches": training_graph_launches,
     }
 
 
-def training_phases(hp, robot, targets, exact_kw, dev, tmp, shipped=os.path.join(ROOT, "models", "panda__full_sigmoid.npz")):
+SHIPPED = os.path.join(ROOT, "models", "panda__full_sigmoid.npz")
+
+
+def cache_under(tmp):
+    """Point the port's cache tree (datasets, models, run logs) under ``tmp``."""
+    from ikflow_tpu_torch import config
+
+    config.CACHE_DIR = os.path.join(tmp, "cache")
+    config.DATASET_DIR = os.path.join(config.CACHE_DIR, "datasets")
+    config.MODELS_DIR = os.path.join(config.CACHE_DIR, "models")
+    config.TRAINING_LOGS_DIR = os.path.join(config.CACHE_DIR, "training_logs")
+
+
+def warm_train_argv(hp, shipped, export, run_dir, dev):
+    """``train`` from the shipped weights: WARM_STEPS resident steps at lr
+    1e-6, exported in fp16 through the registry's gate."""
+    return ["train", "--robot_name", "panda", "--nb_nodes", str(hp.nb_nodes),
+            "--dim_latent_space", str(hp.dim_latent_space), "--coeff_fn_config", str(hp.coeff_fn_config),
+            "--coeff_fn_internal_size", str(hp.coeff_fn_internal_size), "--disable_softflow", "--sigmoid_on_output",
+            "--init_npz", shipped, "--on_device_data", "--n_steps", str(WARM_STEPS), "--steps_per_call", "100",
+            "--learning_rate", "1e-6", "--export", export, "--export_dtype", "float16", "--run_dir", run_dir,
+            "--device", dev.type]
+
+
+def training_phases(hp, robot, targets, exact_kw, dev, tmp, shipped=SHIPPED):
     """13. dataset, 14. train_fresh (fp32, its profile, then bf16), 15.
     train_warm (the train command from the shipped weights, its export
-    served back through K1). Every file goes under ``tmp``. -> the kernels'
-    launches in these phases."""
+    served back through K1). Every file goes under ``tmp``. -> (the kernels'
+    launches in these phases, the resident dataset)."""
     from ikflow_tpu_torch import config
     from ikflow_tpu_torch.cli.main import main as cli_main
     from ikflow_tpu_torch.flow.fused_subnet import fused_mlp, fused_mlp_bf16
@@ -728,10 +775,7 @@ def training_phases(hp, robot, targets, exact_kw, dev, tmp, shipped=os.path.join
     from ikflow_tpu_torch.training.checkpoints import load_deploy, read_deploy_header
     from ikflow_tpu_torch.training.common import tree_leaves
 
-    config.CACHE_DIR = os.path.join(tmp, "cache")
-    config.DATASET_DIR = os.path.join(config.CACHE_DIR, "datasets")
-    config.MODELS_DIR = os.path.join(config.CACHE_DIR, "models")
-    config.TRAINING_LOGS_DIR = os.path.join(config.CACHE_DIR, "training_logs")
+    cache_under(tmp)
     launches = {"fused_mlp": 0, "fused_mlp_bf16": 0}
 
     # 13. dataset
@@ -757,12 +801,7 @@ def training_phases(hp, robot, targets, exact_kw, dev, tmp, shipped=os.path.join
     # 15. train_warm: the train command in-process, from the shipped weights.
     t0 = time.perf_counter()
     export = os.path.join(tmp, "panda__full_sigmoid.npz")
-    argv = ["train", "--robot_name", "panda", "--nb_nodes", str(hp.nb_nodes),
-            "--dim_latent_space", str(hp.dim_latent_space), "--coeff_fn_config", str(hp.coeff_fn_config),
-            "--coeff_fn_internal_size", str(hp.coeff_fn_internal_size), "--disable_softflow", "--sigmoid_on_output",
-            "--init_npz", shipped, "--on_device_data", "--n_steps", str(WARM_STEPS), "--steps_per_call", "100",
-            "--learning_rate", "1e-6", "--export", export, "--export_dtype", "float16",
-            "--run_dir", os.path.join(tmp, "run_warm"), "--device", dev.type]
+    argv = warm_train_argv(hp, shipped, export, os.path.join(tmp, "run_warm"), dev)
     fused_mlp.launches = 0
     fused_mlp_bf16.launches = 0
     t1 = time.perf_counter()
@@ -812,7 +851,7 @@ def training_phases(hp, robot, targets, exact_kw, dev, tmp, shipped=os.path.join
          export_quality=header["quality"], export_gate_mm=header["quality_gate_mm"],
          val_l2_error_mm=vals, val_ratio_bound=WARM_VAL_RATIO, exact=summary, tier_counts=tiers,
          kernel_launches=fused_mlp.launches, export_validation_launches=cli_launches)
-    return launches
+    return launches, ds
 
 
 @contextlib.contextmanager
@@ -1548,11 +1587,7 @@ def profile_solve(fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    host = {}
-    for evt in prof.profiler.kineto_results.events():
-        if evt.device_type() != torch.autograd.DeviceType.CUDA and HOST_LAUNCH.match(evt.name()):
-            host[evt.name()] = host.get(evt.name(), 0) + 1
-    kernels = device_kernels(prof)
+    host, kernels = host_launches(prof), device_kernels(prof)
     out = {"wall_ms": wall_ms, "host_launch_calls": sum(host.values()), "host_calls_by_name": host}
     if not kernels:
         return {**out, "device_ms": "not measured"}
@@ -1561,6 +1596,17 @@ def profile_solve(fn):
     return {**out, "device_ms": device_ms, "idle_share": 1.0 - device_ms / wall_ms,
             "device_kernels": sum(c for _, c in kernels.values()), "subnet_kernel_ms": subnet_ms,
             "other_kernels_ms": device_ms - subnet_ms, "subnet_launches": subnet_launches(kernels)}
+
+
+def host_launches(prof):
+    """{name: count} of the host's calls that queue work on the card
+    (HOST_LAUNCH) in a finished torch.profiler run of CPU and CUDA
+    activity."""
+    host = {}
+    for evt in prof.profiler.kineto_results.events():
+        if evt.device_type() != torch.autograd.DeviceType.CUDA and HOST_LAUNCH.match(evt.name()):
+            host[evt.name()] = host.get(evt.name(), 0) + 1
+    return host
 
 
 def subnet_launches(kernels):
@@ -1961,6 +2007,209 @@ def phase_graphs_cli(targets):
     emit("graphs_cli", t0, **report)
 
 
+def train_windows(flow, robot, ds, dev, cfg, window, graphs):
+    """``Trainer.fit_on_device`` from ``flow.init`` (seed 0) over
+    ``cfg.n_steps // window`` windows, on the graphs or eager, the last
+    window under torch.profiler. -> (params, summary): every window's losses,
+    ms per step of the untraced windows (CUDA events at the window ends; the
+    first holds the eager first step and the capture), the traced window's
+    device ms, idle share, host launch calls and kernels per step, the
+    capture and the peak memory."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ikflow_tpu_torch.training import Trainer
+
+    n_windows = cfg.n_steps // window
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    windows, events, state = [], [], {}
+    trainer = Trainer(flow, robot, cfg, device=dev)
+    trainer.use_graphs = graphs
+
+    def hook(step, metrics):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        windows.append(metrics)
+        if len(windows) == n_windows - 1:  # the last window is traced
+            cache = trainer._graphs
+            state["capture"] = None if cache is None else {"captures": cache.captures,
+                                                           "capture_s": cache.capture_seconds}
+            torch.cuda.synchronize()
+            prof.start()
+            state["t0"] = time.perf_counter()
+        elif len(windows) == n_windows:
+            torch.cuda.synchronize()
+            state["wall_ms"] = 1e3 * (time.perf_counter() - state["t0"])
+            prof.stop()
+
+    trainer.metric_hook = hook
+    params = flow.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the reserved peak is this run's, not the cache earlier phases left
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    trained, metrics = trainer.fit_on_device(params, ds, steps_per_call=window)
+    torch.cuda.synchronize()
+    check(metrics["step"] == cfg.n_steps and len(windows) == n_windows, f"ran {metrics['step']} steps")
+    ms = [a.elapsed_time(b) / window for a, b in zip([start] + events[:-1], events)][:-1]
+    steady = float(np.median(ms[1:]))
+    host, kernels = host_launches(prof), device_kernels(prof)
+    traced = {"wall_ms": state["wall_ms"], "host_launch_calls_per_step": sum(host.values()) / window,
+              "host_calls_by_name": host}
+    if kernels:
+        device_ms = sum(t for t, _ in kernels.values())
+        matmul_ms = sum(t for k, (t, _) in kernels.items() if MATMUL_KERNEL.search(k))
+        traced.update(device_ms=device_ms, device_ms_per_step=device_ms / window, matmul_ms_per_step=matmul_ms / window,
+                      idle_share=1.0 - device_ms / state["wall_ms"],
+                      idle_share_untraced=1.0 - device_ms / (window * steady),
+                      kernels_per_step=sum(c for _, c in kernels.values()) / window,
+                      subnet_launches=subnet_launches(kernels))
+    else:
+        traced["device_ms"] = "not measured"
+    losses = [[m["tr/loss"], m["tr/loss_window_mean"]] for m in windows]
+    check(all(np.isfinite(x) for pair in losses for x in pair), f"non-finite loss: {losses}")
+    return trained, {"path": "graphs" if graphs else "eager", "steps": cfg.n_steps, "window": window,
+                     "window_losses": losses, "ms_per_step_windows": ms, "ms_per_step": steady,
+                     "traced_window": traced, "capture": state["capture"],
+                     "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+                     "peak_reserved_bytes": torch.cuda.max_memory_reserved()}
+
+
+def param_gap(a, b):
+    from ikflow_tpu_torch.training.common import tree_leaves
+
+    return max(float((x - y).abs().max()) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def phase_graphs_training(hp, robot, ds, targets, exact_kw, dev, tmp):
+    """33. The trainer's captured programs against its eager path: the
+    resident window (fp32 and bf16), validation, ``fit`` on host batches and
+    the ``train`` command. -> {kernel: its kernels in a validation replay's
+    trace}."""
+    from ikflow_tpu_torch import config
+    from ikflow_tpu_torch.cli.main import main as cli_main
+    from ikflow_tpu_torch.flow.model import build_flow
+    from ikflow_tpu_torch.registry import get_ik_solver
+    from ikflow_tpu_torch.training import IkDataset, TrainConfig, Trainer
+    from ikflow_tpu_torch.training.checkpoints import read_deploy_header
+
+    t0 = time.perf_counter()
+    report, traced_val = {}, {}
+    flows = {"fp32": build_flow(hp, robot), "bf16": build_flow(dataclasses.replace(hp, bf16_hidden=True), robot)}
+    sizes = {"fp32": (GRAPH_TRAIN_WINDOWS, TRAIN_WINDOW), "bf16": (GRAPH_TRAIN_WINDOWS, TRAIN_BF16_WINDOW)}
+    for name, flow in flows.items():
+        n_windows, window = sizes[name]
+        cfg = TrainConfig(n_steps=n_windows * window, batch_size=TRAIN_BATCH, learning_rate=1e-4, log_every=window,
+                          eval_every=0, checkpoint_every=0, seed=0)
+        runs = {graphs: train_windows(flow, robot, ds, dev, cfg, window, graphs) for graphs in (True, False)}
+        gap = param_gap(runs[True][0], runs[False][0])
+        same = runs[True][1]["window_losses"] == runs[False][1]["window_losses"]
+        check(gap == 0.0 and same, f"graphs_training {name}: the graphs differ from eager: parameters {gap}, "
+              f"losses {runs[True][1]['window_losses']} vs {runs[False][1]['window_losses']}")
+        check(runs[True][1]["capture"]["captures"] == 1, f"graphs_training {name}: {runs[True][1]['capture']}")
+        kernel = "fused_mlp_bf16" if flow.hp.bf16_hidden else "fused_mlp"
+        mine = int(flow.hp.bf16_hidden)
+
+        # Validation: three through one run's scope against eager, then a
+        # fourth replay traced with the counts set to 0 just before.
+        params = runs[True][0]
+        vcfg = TrainConfig()
+        latents = [torch.randn((vcfg.val_set_size * vcfg.samples_per_pose, flow.D),
+                               generator=torch.Generator(device=dev).manual_seed(20 + i), device=dev) for i in range(3)]
+        eager_tr, graph_tr = Trainer(flow, robot, vcfg, device=dev), Trainer(flow, robot, vcfg, device=dev)
+        eager_tr.use_graphs, graph_tr.use_graphs = False, True
+        val_ms = {"eager": [], "graphs": []}
+        ref = []
+        for z in latents:
+            t1 = time.perf_counter()
+            ref.append(eager_tr.validate(params, ds, latents=z))
+            val_ms["eager"].append(1e3 * (time.perf_counter() - t1))
+        with graph_tr.graph_scope() as cache:
+            wrappers = []
+            for i, z in enumerate(latents):
+                _count_reset()
+                t1 = time.perf_counter()
+                got = graph_tr.validate(params, ds, latents=z)
+                val_ms["graphs"].append(1e3 * (time.perf_counter() - t1))
+                wrappers.append(_counts())
+                check(got == ref[i], f"graphs_training {name}: validation {i} differs from eager: {got} vs {ref[i]}")
+            want = 2 * hp.nb_nodes
+            check(wrappers[0][mine] == want and all(w == (0, 0) for w in wrappers[1:]),
+                  f"graphs_training {name}: the wrappers counted {wrappers}")
+            # A trace may miss device events late in this script (phase 31):
+            # up to three traces of the same replay, the fullest read.
+            traces = []
+            for _ in range(3):
+                got, launches, counted = traced_launches(lambda: graph_tr.validate(params, ds, latents=latents[0]))
+                check(got == ref[0] and counted == (0, 0), f"graphs_training {name}: traced validation {got}, "
+                      f"wrappers {counted}")
+                traces.append(launches)
+                if launches[mine] == want:
+                    break
+            best = max(traces, key=lambda k: k[mine])
+            check(best[mine] == want and best[1 - mine] == 0,
+                  f"graphs_training {name}: validation replay traces hold (K1, K1') {traces}, for {want}")
+            captures = cache.captures
+        traced_val[kernel] = best[mine]
+        report[name] = {"graphs": runs[True][1], "eager": runs[False][1], "max_abs_param_gap": gap,
+                        "window_losses_equal": same,
+                        "validation": {"equal_to_eager": True, "ms": val_ms, "wrapper_counts": wrappers,
+                                       "traces": traces, "captures": captures,
+                                       "val_l2_error_mm": ref[0]["val/l2_error_mm"]}}
+
+    # fit on host batches, FIT_STEPS steps on each path.
+    flow = flows["fp32"]
+    host_ds = IkDataset(ds.samples_tr[:N_FIT_ROWS].cpu().numpy(), ds.endpoints_tr[:N_FIT_ROWS].cpu().numpy(),
+                        ds.samples_te, ds.endpoints_te, ds.robot_name)
+    cfg = TrainConfig(n_steps=FIT_STEPS, batch_size=TRAIN_BATCH, log_every=1, eval_every=0, checkpoint_every=0, seed=0)
+    fits = {}
+    for graphs in (True, False):
+        logged = []
+        trainer = Trainer(flow, robot, cfg, metric_hook=lambda s, m: logged.append(
+            (s, {k: v for k, v in m.items() if k != "tr/batches_p_sec"})), device=dev)
+        trainer.use_graphs = graphs
+        params = flow.init(torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        trained, _ = trainer.fit(params, host_ds)
+        torch.cuda.synchronize()
+        fits[graphs] = (trained, logged, 1e3 * (time.perf_counter() - t1) / FIT_STEPS)
+    gap = param_gap(fits[True][0], fits[False][0])
+    check(gap == 0.0 and fits[True][1] == fits[False][1] and len(fits[True][1]) == FIT_STEPS,
+          f"graphs_training fit: the graphs differ from eager: parameters {gap}")
+    report["fit"] = {"steps": FIT_STEPS, "rows": N_FIT_ROWS, "max_abs_param_gap": gap, "metrics_equal": True,
+                     "ms_per_step_wall": {"graphs": fits[True][2], "eager": fits[False][2]},
+                     "last_loss": fits[True][1][-1][1]["tr/loss"]}
+
+    # The train command on the graphs, from the shipped weights (phase 15's run).
+    Trainer.use_graphs = True
+    cache_under(tmp)
+    export = os.path.join(tmp, "panda__full_sigmoid.npz")
+    _count_reset()
+    t1 = time.perf_counter()
+    rc = cli_main(warm_train_argv(hp, SHIPPED, export, os.path.join(tmp, "run_warm_graphs"), dev))
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t1
+    counted = _counts()
+    header = read_deploy_header(export)
+    check(rc == 0, f"train on the graphs returned {rc}")
+    check(header is not None and header["quality_gate_mm"] == 13.0 and header["quality"]["val_l2_error_mm"] <= 13.0
+          and header["global_step"] == WARM_STEPS, f"the export did not pass the 13.0 mm gate: {header}")
+    # The export's validation runs after the run, outside its graphs: eagerly.
+    check(counted == (2 * hp.nb_nodes, 0), f"train on the graphs ran (K1, K1') {counted} times through the wrappers")
+    config.MODELS_DIR = tmp
+    slv, _ = get_ik_solver(MODEL, device=dev)
+    sols, valids, tier_counts = slv.generate_exact_ik_solutions(
+        targets, generator=torch.Generator(device=dev).manual_seed(43), **exact_kw)
+    summary = check_solutions(robot, sols.cpu().numpy(), valids.cpu().numpy(), targets.cpu().numpy(), 0.99, 0.01)
+    report["train_command"] = {"steps": WARM_STEPS, "cli_s": cli_s, "export_quality": header["quality"],
+                               "export_gate_mm": header["quality_gate_mm"], "wrapper_counts": counted,
+                               "exact": summary, "tier_counts": [int(c) for c in tier_counts.cpu()]}
+    emit("graphs_training", t0, **report)
+    return traced_val
+
+
 def graph_phases(hp, solver, solver_bf16, targets, targets_mb, dev):
     """31-32 on the graph path (the library's default again). -> {kernel:
     (its kernels that the replayed main path ran, from the trace; the
@@ -1996,10 +2245,12 @@ def main():
     from ikflow_tpu_torch.registry import get_ik_solver
     from ikflow_tpu_torch.robots import native_oracle
     from ikflow_tpu_torch.solver import IKFlowSolver
+    from ikflow_tpu_torch.training import Trainer
 
     t_all = time.perf_counter()
-    # Phases 5-30 drive the eager path, the reference of phases 31-32.
+    # Phases 5-30 drive the eager path, the reference of phases 31-33.
     IKFlowSolver.use_graphs = False
+    Trainer.use_graphs = False
 
     # Build: one nvcc per source and g++ for the float64 oracle, all started
     # together, with the kernels' resource reports.
@@ -2329,7 +2580,7 @@ def main():
 
     # 13-15. Training, with every file under a temporary cache tree.
     with tempfile.TemporaryDirectory(prefix="ikflow_chip_smoke_") as tmp:
-        training_launches = training_phases(hp, robot, targets, exact_kw, dev, tmp)
+        training_launches, ds = training_phases(hp, robot, targets, exact_kw, dev, tmp)
 
     # 16. K1 and K1' against their plain versions at the rows each validation
     # gave them (val_set_size poses x samples_per_pose).
@@ -2356,6 +2607,10 @@ def main():
     # 31-32. The captured programs: the main path on the graphs.
     graph_main = graph_phases(hp, solver, solver_bf16, targets, targets_mb, dev)
 
+    # 33. The trainer's captured programs against its eager path.
+    with tempfile.TemporaryDirectory(prefix="ikflow_chip_smoke_") as tmp:
+        training_graph = phase_graphs_training(hp, robot, ds, targets, exact_kw, dev, tmp)
+
     print(json.dumps({"kernels": [
         kernel_entry("fused_mlp", "bf16_hidden=False: fp32 contract, hidden layers 3xTF32 on wgmma m64n128k8 "
                      "with packed tf32 hi/lo weight planes, 64-row tiles split over 8-CTA clusters, "
@@ -2363,7 +2618,7 @@ def main():
                      "ikflow_tpu_torch/csrc/fused_mlp.cu", graph_main["fused_mlp"][0],
                      max(max_err, max_err_p, max_err_t, max_err_m, max_err_mesh), headline,
                      training_launches["fused_mlp"], cli_launches, mesh_launches["fused_mlp"], main_path_launches,
-                     graph_main["fused_mlp"][1]),
+                     graph_main["fused_mlp"][1], training_graph["fused_mlp"]),
         kernel_entry("fused_mlp_bf16", "bf16_hidden=True: hidden layers bf16 on wgmma m64n128k16 with fp32 "
                      "accumulation, 64-row tiles split over 8-CTA clusters, weights packed once and streamed by "
                      "cp.async.bulk into a 4-slot mbarrier ring, activations pulled from the peers over DSMEM by a "
@@ -2371,7 +2626,7 @@ def main():
                      "ikflow_tpu_torch/csrc/fused_mlp_bf16.cu", graph_main["fused_mlp_bf16"][0],
                      max(max_err_b, max_err_pb, max_err_tb, max_err_mesh_b),
                      headline_b, training_launches["fused_mlp_bf16"], 0, mesh_launches["fused_mlp_bf16"],
-                     main_path_launches_bf16, graph_main["fused_mlp_bf16"][1]),
+                     main_path_launches_bf16, graph_main["fused_mlp_bf16"][1], training_graph["fused_mlp_bf16"]),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"total_seconds": round(time.perf_counter() - t_all, 3)}), flush=True)

@@ -1,4 +1,5 @@
-"""Captured CUDA graphs of the serving programs, one cache per solver.
+"""Captured CUDA graphs of the serving programs (one cache per solver) and
+of the training programs (one cache per training run, ``Trainer.graph_scope``).
 
 The counterpart of the JAX solver's ``_jit_cache``, where each serving entry
 point is compiled once per shape by ``jax.jit``: here a program (one exact
@@ -22,7 +23,7 @@ from one host call.
   keep earlier results (the megabatch's chunks, a caller's two solves).
 - **Invalidation.** A graph holds raw pointers into the parameters it was
   captured on, so the solver empties its cache whenever its parameters are
-  set.
+  set, and a trainer's cache ends with its run.
 - **Size.** At most ``DEFAULT_MAX_ENTRIES`` graphs; the least recently used
   is evicted and reset. Each graph keeps its own memory pool.
 

@@ -3,28 +3,32 @@ decay with an optional linear warmup, and value or global-norm gradient
 clipping.
 
 Port of ``ikflow_tpu/training/optimizers.py``, which builds them from optax
-0.2; this module computes what those optax transformations compute:
+0.2; this module computes what those optax transformations compute, in
+float32:
 
 - the LR of update t (t = 1, 2, ...) is ``schedule(t - 1)``: the schedule is
   read at the count before the increment, so with warmup the first update
   moves nothing;
 - ``adamw`` is optax's (weight decay 1e-4 on every parameter), ``adam`` and
-  ``adadelta`` (rho 0.9, eps 1e-6) too: ``torch.optim`` computes the same
-  rules, with the LR set before each step;
+  ``adadelta`` (rho 0.9, eps 1e-6) too;
 - ``ranger`` is RAdam (betas 0.95 / 0.999, eps 1e-4) under a Lookahead
   (every 6 updates the slow weights move half way to the fast ones and the
-  fast ones are reset onto them). The RAdam step is written here:
-  ``torch.optim.RAdam`` puts eps inside the bias correction and rectifies
-  only from rho_t > 5, where optax computes ``r * m_hat / (sqrt(v_hat) + eps)``
-  from rho_t >= 5;
+  fast ones are reset onto them): ``r * m_hat / (sqrt(v_hat) + eps)`` from
+  rho_t >= 5, ``m_hat`` before;
 - "norm" clipping scales the gradients by ``c / ||g||`` only when
-  ``||g|| >= c`` (``torch.nn.utils.clip_grad_norm_`` divides by
-  ``||g|| + 1e-6`` always).
+  ``||g|| >= c``.
+
+An update is two halves, so that a captured CUDA graph can hold the second:
+``prepare`` advances the count on the host and fills 0-d tensors on the
+parameters' device with what the count decides (the LR, the bias
+corrections, RAdam's rectifier and its choice, the Lookahead sync), and
+``update`` is device work only, one body for every rule, that reads them.
+The choices are selects on the device: a graph replays the same kernels at
+every count. ``step`` runs both, from the parameters' ``.grad``.
 """
 
 from __future__ import annotations
 
-import copy
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -39,6 +43,13 @@ LOOKAHEAD_SLOW_STEP = 0.5
 ADAMW_WEIGHT_DECAY = 1e-4
 ADADELTA_RHO = 0.9
 ADADELTA_EPS = 1e-6
+ADAM_BETAS = (0.9, 0.999)
+ADAM_EPS = 1e-8
+# Per rule: the moments it keeps, and the scalars ``prepare`` fills.
+_STATE = {"adamw": ("exp_avg", "exp_avg_sq"), "adam": ("exp_avg", "exp_avg_sq"),
+          "adadelta": ("square_avg", "acc_delta"), "ranger": ("m", "v")}
+_SCALARS = {"adamw": ("neg_lr", "bc1", "bc2"), "adam": ("neg_lr", "bc1", "bc2"), "adadelta": ("neg_lr",),
+            "ranger": ("neg_lr", "bc1", "bc2", "r", "rectify", "keep_m_hat", "sync", "slow_step")}
 
 _f32 = np.float32
 
@@ -70,9 +81,11 @@ def make_lr_schedule(
 
 
 class Optimizer:
-    """Updates ``params`` in place from their ``.grad``: clip, then the
-    optimizer's rule at the scheduled LR. ``count`` is the number of updates
-    made; ``state_dict`` / ``load_state_dict`` carry it and the moments."""
+    """Updates ``params`` in place: clip, then the optimizer's rule at the
+    scheduled LR. ``count`` is the number of updates made; ``state_dict`` /
+    ``load_state_dict`` carry it and the moments (``load_state_dict`` copies
+    into the tensors the optimizer holds, whose addresses a captured update
+    reads)."""
 
     def __init__(
         self,
@@ -95,64 +108,113 @@ class Optimizer:
         self.gradient_clip = gradient_clip
         self.gradient_clip_algorithm = gradient_clip_algorithm
         self.count = 0
-        self._core: Optional[torch.optim.Optimizer] = None
-        if name == "adamw":
-            self._core = torch.optim.AdamW(self.params, lr=learning_rate, weight_decay=ADAMW_WEIGHT_DECAY)
-        elif name == "adam":
-            self._core = torch.optim.Adam(self.params, lr=learning_rate)
-        elif name == "adadelta":
-            self._core = torch.optim.Adadelta(self.params, lr=learning_rate, rho=ADADELTA_RHO, eps=ADADELTA_EPS)
-        else:
-            with torch.no_grad():
-                self._m = [torch.zeros_like(p) for p in self.params]
-                self._v = [torch.zeros_like(p) for p in self.params]
-                self._slow = [p.detach().clone() for p in self.params]
+        device = self.params[0].device if self.params else torch.device("cpu")
+        self._scalars = {k: torch.zeros((), dtype=torch.float32, device=device) for k in _SCALARS[name]}
+        with torch.no_grad():
+            self._state = {k: [torch.zeros_like(p) for p in self.params] for k in _STATE[name]}
+            if name == "ranger":
+                self._state["slow"] = [p.detach().clone() for p in self.params]
 
     @property
     def learning_rate(self) -> float:
         """The LR the next update applies."""
         return self.schedule(self.count)
 
-    def zero_grad(self) -> None:
-        for p in self.params:
-            p.grad = None
+    def prepare(self) -> None:
+        """The host's half of an update: advance the count and fill the
+        scalars ``update`` reads (float32, as optax computes them)."""
+        lr = self.schedule(self.count)
+        self.count += 1
+        t = _f32(self.count)
+        values = {"neg_lr": -lr}
+        if self.name != "adadelta":
+            b1, b2 = RANGER_BETAS if self.name == "ranger" else ADAM_BETAS
+            b2t = _f32(b2) ** t
+            values.update(bc1=_f32(1) - _f32(b1) ** t, bc2=_f32(1) - b2t)
+        if self.name == "ranger":
+            rho_inf = _f32(2.0 / (1.0 - RANGER_BETAS[1]) - 1.0)
+            rho = rho_inf - _f32(2) * t * b2t / (_f32(1) - b2t)
+            rectify = bool(rho >= RADAM_THRESHOLD)
+            sync = self.count % LOOKAHEAD_SYNC_PERIOD == 0
+            r = np.sqrt((rho - 4) * (rho - 2) * rho_inf / ((rho_inf - 4) * (rho_inf - 2) * rho)) if rectify else 1.0
+            values.update(r=r, rectify=float(rectify), keep_m_hat=float(not rectify), sync=float(sync),
+                          slow_step=LOOKAHEAD_SLOW_STEP * float(sync))
+        for k, v in values.items():
+            self._scalars[k].fill_(float(v))
 
     @torch.no_grad()
-    def _clip(self, grads: Sequence[torch.Tensor]) -> None:
+    def _clip(self, grads: List[torch.Tensor]) -> None:
         c = self.gradient_clip
         if c is None:
             return
         if self.gradient_clip_algorithm == "value":
-            for g in grads:
-                g.clamp_(-c, c)
+            torch._foreach_clamp_min_(grads, -c)
+            torch._foreach_clamp_max_(grads, c)
             return
-        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         keep = norm < c
-        for g in grads:
-            g.copy_(torch.where(keep, g, g / norm * c))
+        # g / ||g|| * c where ||g|| >= c, else g / 1 * 1 (exactly g)
+        torch._foreach_div_(grads, torch.where(keep, torch.ones_like(norm), norm))
+        torch._foreach_mul_(grads, torch.where(keep, torch.ones_like(norm), torch.full_like(norm, c)))
 
     @torch.no_grad()
-    def _radam_step(self, lr: float) -> None:
-        b1, b2 = RANGER_BETAS
-        t = self.count
-        rho_inf = _f32(2.0 / (1.0 - b2) - 1.0)
-        b2t = _f32(b2) ** _f32(t)
-        rho = rho_inf - _f32(2) * _f32(t) * b2t / (_f32(1) - b2t)
-        bc1 = float(_f32(1) - _f32(b1) ** _f32(t))
-        bc2 = float(_f32(1) - b2t)
-        rectify = bool(rho >= RADAM_THRESHOLD)
-        if rectify:
-            r = float(np.sqrt((rho - 4) * (rho - 2) * rho_inf / ((rho_inf - 4) * (rho_inf - 2) * rho)))
-        for p, m, v in zip(self.params, self._m, self._v):
-            g = p.grad
-            m.mul_(b1).add_(g, alpha=1 - b1)
-            v.mul_(b2).addcmul_(g, g, value=1 - b2)
-            m_hat = m / bc1
-            if rectify:
-                update = r * m_hat / (torch.sqrt(v / bc2) + RANGER_EPS)
+    def update(self, grads: Sequence[torch.Tensor]) -> None:
+        """The device's half of an update: ``grads`` (clipped in place) move
+        the parameters by the rule at the scalars ``prepare`` filled. No host
+        value and no branch on the count: a CUDA graph may capture it."""
+        grads = list(grads)
+        self._clip(grads)
+        s, state = self._scalars, self._state
+        if self.name == "adadelta":
+            e_g, e_x = state["square_avg"], state["acc_delta"]
+            torch._foreach_mul_(e_g, ADADELTA_RHO)
+            torch._foreach_addcmul_(e_g, grads, grads, value=1 - ADADELTA_RHO)
+            u = torch._foreach_add(e_x, ADADELTA_EPS)
+            torch._foreach_sqrt_(u)
+            den = torch._foreach_add(e_g, ADADELTA_EPS)
+            torch._foreach_sqrt_(den)
+            torch._foreach_div_(u, den)
+            torch._foreach_mul_(u, grads)
+            torch._foreach_mul_(e_x, ADADELTA_RHO)
+            torch._foreach_addcmul_(e_x, u, u, value=1 - ADADELTA_RHO)
+        else:
+            ranger = self.name == "ranger"
+            m, v = (state["m"], state["v"]) if ranger else (state["exp_avg"], state["exp_avg_sq"])
+            (b1, b2), eps = (RANGER_BETAS, RANGER_EPS) if ranger else (ADAM_BETAS, ADAM_EPS)
+            torch._foreach_mul_(m, b1)
+            torch._foreach_add_(m, grads, alpha=1 - b1)
+            torch._foreach_mul_(v, b2)
+            torch._foreach_addcmul_(v, grads, grads, value=1 - b2)
+            u = torch._foreach_div(m, s["bc1"])  # m_hat
+            den = torch._foreach_div(v, s["bc2"])  # v_hat
+            torch._foreach_sqrt_(den)
+            torch._foreach_add_(den, eps)
+            if ranger:
+                # Rectified: r * m_hat / (sqrt(v_hat) + eps), else m_hat; the
+                # select is rect * rectify + m_hat * keep_m_hat with flags 1
+                # and 0 (r = 1 before rectifying, so both terms are finite).
+                # (A foreach add of a 0-d tensor cannot be captured on the card.)
+                rect = torch._foreach_mul(u, s["r"])
+                torch._foreach_div_(rect, den)
+                torch._foreach_mul_(rect, s["rectify"])
+                torch._foreach_mul_(u, s["keep_m_hat"])
+                torch._foreach_add_(u, rect)
             else:
-                update = m_hat
-            p.add_(update, alpha=-lr)
+                torch._foreach_div_(u, den)
+            if self.name == "adamw":
+                torch._foreach_add_(u, self.params, alpha=ADAMW_WEIGHT_DECAY)
+        torch._foreach_mul_(u, s["neg_lr"])
+        torch._foreach_add_(self.params, u)
+        if self.name == "ranger":
+            # Lookahead: slow += 0.5 * (fast - slow), then fast += (slow - fast),
+            # each times the sync flag (0 between syncs: both stay).
+            slow = state["slow"]
+            d = torch._foreach_sub(self.params, slow)
+            torch._foreach_mul_(d, s["slow_step"])
+            torch._foreach_add_(slow, d)
+            d = torch._foreach_sub(slow, self.params)
+            torch._foreach_mul_(d, s["sync"])
+            torch._foreach_add_(self.params, d)
 
     @torch.no_grad()
     def step(self) -> None:
@@ -160,34 +222,32 @@ class Optimizer:
         grads = [p.grad for p in self.params]
         if any(g is None for g in grads):
             raise ValueError("every parameter needs a .grad before step()")
-        self._clip(grads)
-        lr = self.schedule(self.count)
-        self.count += 1
-        if self._core is not None:
-            for group in self._core.param_groups:
-                group["lr"] = lr
-            self._core.step()
-            return
-        self._radam_step(lr)
-        if self.count % LOOKAHEAD_SYNC_PERIOD == 0:
-            for p, slow in zip(self.params, self._slow):
-                slow.add_(p - slow, alpha=LOOKAHEAD_SLOW_STEP)
-                p.copy_(slow)
+        self.prepare()
+        self.update(grads)
 
     def state_dict(self) -> Dict:
-        if self._core is not None:
-            return {"name": self.name, "count": self.count, "core": self._core.state_dict()}
-        return {"name": self.name, "count": self.count, "m": self._m, "v": self._v, "slow": self._slow}
+        """``{"name", "count", "m", "v", "slow"}`` for ranger; for the others
+        ``{"name", "count", "core"}``, "core" in ``torch.optim``'s layout of
+        the same rule (per parameter index its "step" and moments)."""
+        out = {"name": self.name, "count": self.count}
+        if self.name == "ranger":
+            return dict(out, **self._state)
+        per_param = {i: {"step": torch.tensor(float(self.count)), **{k: ts[i] for k, ts in self._state.items()}}
+                     for i in range(len(self.params))} if self.count else {}
+        return dict(out, core={"state": per_param,
+                               "param_groups": [{"lr": self.learning_rate, "params": list(range(len(self.params)))}]})
 
     @torch.no_grad()
     def load_state_dict(self, state: Dict) -> None:
         if state["name"] != self.name:
             raise ValueError(f"optimizer state is for {state['name']!r}, not {self.name!r}")
         self.count = int(state["count"])
-        if self._core is not None:
-            self._core.load_state_dict(copy.deepcopy(state["core"]))  # torch.optim would share the tensors
-            return
-        for mine, theirs in ((self._m, state["m"]), (self._v, state["v"]), (self._slow, state["slow"])):
+        for k, mine in self._state.items():
+            if self.name == "ranger":
+                theirs = state[k]
+            else:  # torch.optim keeps no state before the first update
+                per_param = state["core"]["state"]
+                theirs = [per_param[i][k] if i in per_param else torch.zeros_like(a) for i, a in enumerate(mine)]
             for a, b in zip(mine, theirs):
                 a.copy_(b)
 

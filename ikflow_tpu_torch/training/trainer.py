@@ -13,6 +13,22 @@ Port of ``ikflow_tpu/training/trainer.py`` for one device:
 - ``fit_on_device``: the train split resident on the device, batch indices
   drawn there, and one host synchronisation per ``steps_per_call`` window.
 
+On a card the three programs of the JAX trainer (its jitted step, its
+jitted validation and its scanned window) run as captured CUDA graphs
+(``graphs.GraphCache``, one cache per ``fit`` / ``fit_on_device`` call,
+emptied when the call returns or raises): ``fit_on_device`` replays one
+update step per step, the batch gathered from the resident split inside the
+graph; ``fit`` replays the same step with its metrics on host batches copied
+into its static inputs; ``validate`` replays the validation (packing, the
+flow inverse through K1 or K1', the grading). The batch indices and the
+noise are drawn outside the graph in the eager order, and the optimizer's
+count-dependent scalars are filled before each replay
+(``Optimizer.prepare``), so graph and eager run the same kernels on the same
+numbers. A key's first call runs eagerly, its second captures. A capture or
+replay error raises: nothing falls back to the eager path. ``use_graphs =
+False`` (on a trainer or the class) runs the eager bodies on the card; the
+CPU and a ``mesh`` trainer always run them.
+
 The training forward runs the plain subnet under autograd (with
 ``bf16_hidden``, its bf16 plain version, as the JAX package's
 ``apply_subnet``); TF32 stays off. Every run draws from generators seeded by
@@ -34,11 +50,12 @@ on the first entry.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
 import time
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -46,6 +63,7 @@ import torch
 from ikflow_tpu_torch.config import disable_tf32, resolve_device
 from ikflow_tpu_torch.evaluation import evaluate_solutions
 from ikflow_tpu_torch.flow.model import GlowFlow
+from ikflow_tpu_torch.graphs import GraphCache
 from ikflow_tpu_torch.robots.chain import KinematicChain
 from ikflow_tpu_torch.training.checkpoints import save_checkpoint
 from ikflow_tpu_torch.training.common import generator, tree_leaves, tree_map
@@ -57,6 +75,13 @@ from ikflow_tpu_torch.training.optimizers import Optimizer, make_optimizer
 # Generator streams of one seed.
 _STREAM_STEPS = 0
 _STREAM_BATCHES = 1
+# The metrics of a step with metrics and of a validation, in the order their
+# programs return them.
+STEP_METRICS = ("tr/loss", "tr/output_max", "tr/output_abs_ave", "tr/output_ave", "tr/output_std", "tr/loss_ml",
+                "tr/grad_ave", "tr/grad_abs_ave", "tr/grad_max")
+VAL_METRICS = tuple(f"{tag}/{m}" for tag in ("val", "val_clamped") for m in (
+    "l2_error_mm", "l2_error_mm_max", "angular_error_deg", "angular_error_deg_max", "pct_joint_limits_exceeded",
+    "pct_self_colliding"))
 
 
 @dataclasses.dataclass
@@ -98,6 +123,10 @@ def _detached(params):
 
 
 class Trainer:
+    # On a card, run the update step and validation as captured CUDA graphs;
+    # False runs their eager bodies there. The CPU and a mesh always do.
+    use_graphs = True
+
     def __init__(
         self,
         flow: GlowFlow,
@@ -121,6 +150,9 @@ class Trainer:
             os.makedirs(log_dir, exist_ok=True)
             self._metrics_file = open(os.path.join(log_dir, "metrics.jsonl"), "a")
         self.loss_fn = make_loss_fn(flow, robot.ndof)
+        # Which of the noise's (pad, c, v) a step draws: its graph inputs.
+        self._noise_slots = (self.loss_fn.pad_width > 0,) + (flow.hp.softflow_enabled,) * 2
+        self._graphs: Optional[GraphCache] = None
 
     def close(self) -> None:
         if self._metrics_file is not None:
@@ -137,20 +169,82 @@ class Trainer:
     def _step(self, params, optimizer: Optimizer, q: torch.Tensor, poses: torch.Tensor,
               generator: Optional[torch.Generator] = None, noise: Optional[Noise] = None,
               with_metrics: bool = True) -> Dict[str, torch.Tensor]:
-        """One update of ``params`` (leaves that need grads, the optimizer's)
-        in place. Returns the ``tr/*`` metrics as tensors, or only
-        ``tr/loss`` without ``with_metrics``."""
-        leaves = optimizer.params
-        loss, metrics, grads = self.loss_and_grads(params, leaves, q, poses, generator, noise)
+        """One eager update of ``params`` (leaves that need grads, the
+        optimizer's) in place. Returns the ``tr/*`` metrics as tensors, or
+        only ``tr/loss`` without ``with_metrics``."""
+        if noise is None:
+            if generator is None:
+                raise ValueError("pass a generator or the noise")
+            noise = self.loss_fn.draw(q, generator)
+        optimizer.prepare()
+        return self._update(params, optimizer, q, poses, noise, with_metrics)
+
+    def _update(self, params, optimizer: Optimizer, q: torch.Tensor, poses: torch.Tensor, noise: Noise,
+                with_metrics: bool) -> Dict[str, torch.Tensor]:
+        """A step's device work, the body of its graph: loss, gradients, the
+        metrics, clipping and the optimizer's update at the scalars its
+        ``prepare`` filled."""
+        loss, metrics, grads = self.loss_and_grads(params, optimizer.params, q, poses, noise=noise)
         out = {"tr/loss": loss}
         if with_metrics:
             out.update(metrics)
             out.update(grad_stats(grads))
-        for p, g in zip(leaves, grads):
-            p.grad = g
-        optimizer.step()
-        optimizer.zero_grad()
+        optimizer.update(grads)
         return out
+
+    def _noise_inputs(self, noise: Noise) -> Tuple[torch.Tensor, ...]:
+        return tuple(t for t in noise if t is not None)
+
+    def _noise(self, inputs: Sequence[torch.Tensor]) -> Noise:
+        it = iter(inputs)
+        return tuple(next(it) if drawn else None for drawn in self._noise_slots)
+
+    def _step_program(self, params, optimizer: Optimizer, samples: Optional[torch.Tensor] = None,
+                      endpoints: Optional[torch.Tensor] = None, with_metrics: bool = True) -> Callable:
+        """The update step as a program of tensors only. With the resident
+        split (``samples``, ``endpoints``): ``(idx, *noise) -> (loss,)``, the
+        batch gathered inside; else ``(q, poses, *noise) ->`` the
+        ``STEP_METRICS`` (only ``tr/loss`` without ``with_metrics``). The
+        noise is the drawn entries of (pad, c, v)."""
+        def finish(q, poses, noise):
+            out = self._update(params, optimizer, q, poses, self._noise(noise), with_metrics)
+            return tuple(out[k] for k in STEP_METRICS if k in out)
+
+        if samples is None:
+            return lambda q, poses, *noise: finish(q, poses, noise)
+        return lambda idx, *noise: finish(samples.index_select(0, idx), endpoints.index_select(0, idx), noise)
+
+    def _run(self, key: tuple, program: Callable, inputs: Sequence[torch.Tensor],
+             optimizer: Optional[Optimizer] = None) -> Tuple[torch.Tensor, ...]:
+        """``program(*inputs)``, after the optimizer's host half where given:
+        through the run's graph of ``key`` on a card, else eagerly."""
+        if optimizer is not None:
+            optimizer.prepare()
+        if self._graphs is None:
+            return program(*inputs)
+        return self._graphs.run(key + (self.device,), program, inputs)
+
+    def _new_graphs(self) -> Optional[GraphCache]:
+        """A cache for one run's programs, or None where they run eagerly:
+        on the CPU, with ``use_graphs`` off, or over a mesh."""
+        if not self.use_graphs or self.mesh is not None or self.device.type != "cuda":
+            return None
+        return GraphCache(self.device)
+
+    @contextlib.contextmanager
+    def graph_scope(self):
+        """The captured programs of one run: a fresh cache (None where they
+        run eagerly), emptied and dropped when the block returns or raises.
+        Its graphs point at the run's parameters, optimizer state and
+        resident split, which must outlive the block; ``fit`` and
+        ``fit_on_device`` open one for themselves."""
+        outer, self._graphs = self._graphs, self._new_graphs()
+        try:
+            yield self._graphs
+        finally:
+            if self._graphs is not None:
+                self._graphs.clear()
+            self._graphs = outer
 
     def loss_and_grads(self, params, leaves, q: torch.Tensor, poses: torch.Tensor,
                        generator: Optional[torch.Generator] = None, noise: Optional[Noise] = None):
@@ -204,35 +298,45 @@ class Trainer:
                  latents: Optional[torch.Tensor] = None) -> Dict[str, float]:
         """Grade ``min(val_set_size, n_test)`` test poses with
         ``samples_per_pose`` flow samples each; the latents come from
-        ``generator`` unless given, (n_poses * samples_per_pose, D), pose-major."""
+        ``generator`` unless given, (n_poses * samples_per_pose, D), pose-major.
+        Inside a run (``graph_scope``) on a card, through the run's graph of
+        these shapes and parameters: one capture serves every later
+        validation of the run, the optimizer updating the parameters in
+        place."""
         n = min(self.config.val_set_size, dataset.samples_te.shape[0])
         m = self.config.samples_per_pose
-        flow, dev = self.flow, self.device
+        dev = self.device
         poses = torch.as_tensor(np.asarray(dataset.endpoints_te[:n]), dtype=torch.float32, device=dev)
         if latents is None:
             if generator is None:
                 raise ValueError("pass a generator or the latents")
-            latents = torch.randn((n * m, flow.D), generator=generator, device=dev)
+            latents = torch.randn((n * m, self.flow.D), generator=generator, device=dev)
         latents = latents.to(dev)
-        poses_t = poses.repeat_interleave(m, dim=0)
+        # The graph reads the parameters where they lie: key it on their addresses too.
+        key = ("val", n, m) + tuple(t.data_ptr() for t in tree_leaves(params))
+        (values,) = self._run(key, lambda p, z: (self._validation(params, p, z, m),), (poses, latents))
+        out = dict(zip(VAL_METRICS, values.cpu().tolist()))
+        self._log(step, out)
+        return out
+
+    def _validation(self, params, poses: torch.Tensor, latents: torch.Tensor, m: int) -> torch.Tensor:
+        """Validation's device work, the body of its graph: the flow inverse
+        of ``latents`` at each pose repeated ``m`` times, graded -> the
+        ``VAL_METRICS``."""
+        flow = self.flow
+        poses_t = poses[:, None, :].expand(-1, m, -1).reshape(-1, poses.shape[1])  # each pose m times
         cond = poses_t
         if flow.dim_cond > 7:
             cond = torch.cat([poses_t, poses_t.new_zeros((poses_t.shape[0], flow.dim_cond - 7))], dim=1)
         q, _ = flow.inverse(flow.kernel_params(_detached(params)), latents, cond)
         sols = q[:, : self.robot.ndof]
-        out = {}
-        for tag, s in (("val", sols), ("val_clamped", self.robot.clamp_to_joint_limits(sols))):
+        out = []
+        for s in (sols, self.robot.clamp_to_joint_limits(sols)):
             ev = evaluate_solutions(self.robot, poses_t, s)
-            out[f"{tag}/l2_error_mm"] = 1000.0 * ev.pos_errors.mean()
-            out[f"{tag}/l2_error_mm_max"] = 1000.0 * ev.pos_errors.max()
-            out[f"{tag}/angular_error_deg"] = torch.rad2deg(ev.rot_errors.mean())
-            out[f"{tag}/angular_error_deg_max"] = torch.rad2deg(ev.rot_errors.max())
-            out[f"{tag}/pct_joint_limits_exceeded"] = 100.0 * ev.joint_limits_exceeded.float().mean()
-            out[f"{tag}/pct_self_colliding"] = 100.0 * ev.self_colliding.float().mean()
-        values = torch.stack(list(out.values())).cpu().tolist()
-        out = dict(zip(out, values))
-        self._log(step, out)
-        return out
+            out += [1000.0 * ev.pos_errors.mean(), 1000.0 * ev.pos_errors.max(), torch.rad2deg(ev.rot_errors.mean()),
+                    torch.rad2deg(ev.rot_errors.max()), 100.0 * ev.joint_limits_exceeded.float().mean(),
+                    100.0 * ev.self_colliding.float().mean()]
+        return torch.stack(out)
 
     def _start(self, params, opt_state, start_step: int):
         """Trainable copies of ``params``, their optimizer (``opt_state``
@@ -270,77 +374,86 @@ class Trainer:
         With ``time_budget_s`` the run stops at the first window end past the
         budget. Returns (params, metrics); ``metrics["step"]`` is the step
         reached."""
-        cfg, dev = self.config, self.device
         params, optimizer, gen = self._start(params, opt_state, start_step)
-        samples = torch.as_tensor(dataset.samples_tr, device=dev)
-        endpoints = torch.as_tensor(dataset.endpoints_tr, device=dev)
-        n_data = dataset.n_train
-        last_metrics: Dict = {}
-        step = start_step
-        t_start = time.time()
-        while step < cfg.n_steps:
-            t0 = time.time()
-            losses = torch.empty((steps_per_call,), device=dev)
-            for i in range(steps_per_call):
-                idx = torch.randint(0, n_data, (cfg.batch_size,), generator=gen, device=dev)
-                m = self._step(params, optimizer, samples[idx], endpoints[idx], generator=gen, with_metrics=False)
-                losses[i] = m["tr/loss"]
-            mean_loss, last_loss = torch.stack([losses.mean(), losses[-1]]).cpu().tolist()
-            step += steps_per_call
-            dt = time.time() - t0
-            if not np.isfinite(last_loss):
-                raise ValueError(f"loss is not finite at step {step}: {last_loss}")
-            metrics = {
-                "tr/loss": last_loss,
-                "tr/loss_window_mean": mean_loss,
-                "tr/learning_rate": optimizer.learning_rate,
-                "tr/batches_p_sec": steps_per_call / max(dt, 1e-9),
-            }
-            if step % max(cfg.log_every, steps_per_call) < steps_per_call:
-                self._log(step, metrics)
-            last_metrics = metrics
-            if cfg.eval_every and step % max(cfg.eval_every, steps_per_call) < steps_per_call:
-                self.validate(params, dataset, gen, step)
-            if checkpoint_dir and cfg.checkpoint_every and step % max(cfg.checkpoint_every, steps_per_call) < steps_per_call:
+        with self.graph_scope():
+            cfg, dev = self.config, self.device
+            samples = torch.as_tensor(dataset.samples_tr, device=dev)
+            endpoints = torch.as_tensor(dataset.endpoints_tr, device=dev)
+            n_data = dataset.n_train
+            program = self._step_program(params, optimizer, samples, endpoints, with_metrics=False)
+            key = ("fit_on_device", cfg.batch_size, False)
+            batch = samples.new_empty((cfg.batch_size, samples.shape[1]))  # the shape of the noise's draws
+            last_metrics: Dict = {}
+            step = start_step
+            t_start = time.time()
+            while step < cfg.n_steps:
+                t0 = time.time()
+                losses = torch.empty((steps_per_call,), device=dev)
+                for i in range(steps_per_call):
+                    idx = torch.randint(0, n_data, (cfg.batch_size,), generator=gen, device=dev)
+                    noise = self._noise_inputs(self.loss_fn.draw(batch, gen))
+                    losses[i] = self._run(key, program, (idx,) + noise, optimizer)[0]
+                mean_loss, last_loss = torch.stack([losses.mean(), losses[-1]]).cpu().tolist()
+                step += steps_per_call
+                dt = time.time() - t0
+                if not np.isfinite(last_loss):
+                    raise ValueError(f"loss is not finite at step {step}: {last_loss}")
+                metrics = {
+                    "tr/loss": last_loss,
+                    "tr/loss_window_mean": mean_loss,
+                    "tr/learning_rate": optimizer.learning_rate,
+                    "tr/batches_p_sec": steps_per_call / max(dt, 1e-9),
+                }
+                if step % max(cfg.log_every, steps_per_call) < steps_per_call:
+                    self._log(step, metrics)
+                last_metrics = metrics
+                if cfg.eval_every and step % max(cfg.eval_every, steps_per_call) < steps_per_call:
+                    self.validate(params, dataset, gen, step)
+                if (checkpoint_dir and cfg.checkpoint_every
+                        and step % max(cfg.checkpoint_every, steps_per_call) < steps_per_call):
+                    self._checkpoint(checkpoint_dir, step, params, optimizer)
+                if time_budget_s is not None and time.time() - t_start > time_budget_s:
+                    break
+            if checkpoint_dir:
                 self._checkpoint(checkpoint_dir, step, params, optimizer)
-            if time_budget_s is not None and time.time() - t_start > time_budget_s:
-                break
-        if checkpoint_dir:
-            self._checkpoint(checkpoint_dir, step, params, optimizer)
-        return _detached(params), dict(last_metrics, step=step)
+            return _detached(params), dict(last_metrics, step=step)
 
     def fit(self, params, dataset: IkDataset, checkpoint_dir: Optional[str] = None, start_step: int = 0,
             opt_state=None):
         """Train from ``start_step`` to ``n_steps`` on host batches; returns
         (params, the last logged metrics with ``step``)."""
-        cfg, dev = self.config, self.device
         params, optimizer, gen = self._start(params, opt_state, start_step)
-        batches = iterate_batches(dataset, cfg.batch_size, [cfg.seed, _STREAM_BATCHES, start_step])
-        last_metrics: Dict = {}
-        t_window = time.time()
-        window_steps = 0
-        for step in range(start_step, cfg.n_steps):
-            q, poses = next(batches)
-            q = torch.as_tensor(q, device=dev)
-            poses = torch.as_tensor(poses, device=dev)
-            metrics = self._step(params, optimizer, q, poses, generator=gen)
-            window_steps += 1
-            if cfg.log_every and step % cfg.log_every == 0:
-                values = torch.stack(list(metrics.values())).cpu().tolist()
-                metrics = dict(zip(metrics, values))
-                if not np.isfinite(metrics["tr/loss"]):
-                    raise ValueError(f"loss is not finite at step {step}: {metrics['tr/loss']}")
-                dt = time.time() - t_window
-                metrics["tr/learning_rate"] = optimizer.learning_rate
-                metrics["tr/batches_p_sec"] = window_steps / max(dt, 1e-9)
-                self._log(step, metrics)
-                last_metrics = metrics
-                t_window = time.time()
-                window_steps = 0
-            if cfg.eval_every and step > 0 and step % cfg.eval_every == 0:
-                self.validate(params, dataset, gen, step)
-            if checkpoint_dir and cfg.checkpoint_every and step > 0 and step % cfg.checkpoint_every == 0:
-                self._checkpoint(checkpoint_dir, step, params, optimizer)
-        if checkpoint_dir:
-            self._checkpoint(checkpoint_dir, cfg.n_steps, params, optimizer)
-        return _detached(params), dict(last_metrics, step=cfg.n_steps)
+        with self.graph_scope():
+            cfg, dev = self.config, self.device
+            batches = iterate_batches(dataset, cfg.batch_size, [cfg.seed, _STREAM_BATCHES, start_step])
+            program = self._step_program(params, optimizer)
+            last_metrics: Dict = {}
+            t_window = time.time()
+            window_steps = 0
+            for step in range(start_step, cfg.n_steps):
+                q, poses = next(batches)
+                q = torch.as_tensor(q, device=dev)
+                poses = torch.as_tensor(poses, device=dev)
+                noise = self._noise_inputs(self.loss_fn.draw(q, gen))
+                metrics = dict(zip(STEP_METRICS, self._run(("fit", q.shape[0], True), program, (q, poses) + noise,
+                                                           optimizer)))
+                window_steps += 1
+                if cfg.log_every and step % cfg.log_every == 0:
+                    values = torch.stack(list(metrics.values())).cpu().tolist()
+                    metrics = dict(zip(metrics, values))
+                    if not np.isfinite(metrics["tr/loss"]):
+                        raise ValueError(f"loss is not finite at step {step}: {metrics['tr/loss']}")
+                    dt = time.time() - t_window
+                    metrics["tr/learning_rate"] = optimizer.learning_rate
+                    metrics["tr/batches_p_sec"] = window_steps / max(dt, 1e-9)
+                    self._log(step, metrics)
+                    last_metrics = metrics
+                    t_window = time.time()
+                    window_steps = 0
+                if cfg.eval_every and step > 0 and step % cfg.eval_every == 0:
+                    self.validate(params, dataset, gen, step)
+                if checkpoint_dir and cfg.checkpoint_every and step > 0 and step % cfg.checkpoint_every == 0:
+                    self._checkpoint(checkpoint_dir, step, params, optimizer)
+            if checkpoint_dir:
+                self._checkpoint(checkpoint_dir, cfg.n_steps, params, optimizer)
+            return _detached(params), dict(last_metrics, step=cfg.n_steps)
