@@ -154,14 +154,34 @@ import faulthandler; faulthandler.dump_traceback_later(600, exit=True)  # noqa: 
 #     weights, as phase 15 runs it eagerly: its export through the 13.0 mm
 #     gate, served back and solving >= 99% of the 1000 poses exactly.
 #
+# 34-39. The analysis studies (``ikflow_tpu_torch/analysis/``) in-process on
+#     the graphs, at the full width of panda__full__sigmoid on its shipped
+#     weights, each with the kernels' counts set to 0 just before it and read
+#     just after: analysis_lm_convergence (repeat counts x LM steps at n =
+#     500, the full default grid), analysis_inference (the plain flow and the
+#     kernels' flow at 512-32768 rows, fp32 and bf16, chains of replayed
+#     graphs), analysis_refinement (the flow alone, the LM on the card and the
+#     float64 host LM at 100, 500 and 1000 poses, k = 3: the JAX default's ten
+#     sizes cut to three; the LM on the card >= 0.99 at 1000),
+#     analysis_post_training (the battery on the shipped weights: its accuracy
+#     line within 25% of the JAX script's on the same protocol, with three
+#     more draws for the spread and phase 19's figure beside it,
+#     exact_steps3_full >= 0.99, the trained flow's kernels against its plain
+#     subnets), analysis_latent_stats (100
+#     poses x 20 solutions per latent cell; the render only where matplotlib
+#     is installed) and analysis_multihost (two gloo ranks with ``--device
+#     cpu`` on this machine, then the ``--device cuda`` refusal on one card).
+#
 # The kernels line's ``launches`` is the count of each kernel in the trace
 # of the replayed main path of phase 31; ``eager_main_path_launches`` is
 # what the wrappers counted over the eager main path of phases 5-6 and 9,
 # ``graph_first_call_launches`` over a fresh cache's first calls, and
 # ``training_graph_launches`` the kernels in a validation replay's trace
-# (phase 33).
+# (phase 33), ``analysis_launches`` what the wrappers counted over phases
+# 34-38 (the studies' eager first calls and warm-up passes; replays are not
+# counted).
 #
-# Phases 13-15, 17-30 and 33 write every file (cache, datasets, run directory,
+# Phases 13-15, 17-30, 33 and 36-38 write every file (cache, datasets, run directory,
 # checkpoints, the export, the performances table, the HTML scenes) under
 # temporary directories that are removed at the end.
 #
@@ -310,6 +330,17 @@ CLI_ONE_SHOT_RUNS = 3  # ``solve --exact`` in-process on each path, in turns
 GRAPH_EXACT_KW = dict(repeat_counts=(1, 3, 10), pos_error_threshold=1e-3, rot_error_threshold=0.01,
                       n_opt_steps_max=3, latent_scale=0.75, return_tier_counts=True)
 # The host's calls that queue work on the card, as torch.profiler records them.
+ANALYSIS_REFINE_SIZES = (100, 500, 1000)
+ANALYSIS_LATENT = (100, 20)  # poses x solutions per pose
+# post_training_eval's accuracy protocol (500 uniform in-limit poses, self-colliding ones included, x 50 at
+# latent scale 0.75) as the JAX script computes it on the CPU on the shipped weights: ``python
+# analysis/post_training_eval.py --weights models/panda__full_sigmoid.npz --n_exact 8``. One draw of 500 poses
+# moves the means by about a tenth (mm) and a fifth (deg) between seeds, hence the band; POST_DRAWS more draws
+# on the card show the spread.
+POST_TRAINING_REFERENCE = {"mean_l2_error_mm": 7.593, "mean_angular_error_deg": 2.781}
+POST_ACCURACY_REL = 0.25
+POST_DRAWS = 3
+CONTRACT_SHARE = 0.99
 HOST_LAUNCH = re.compile(r"^cu(da)?(LaunchKernel|LaunchKernelEx|LaunchKernelExC|GraphLaunch|MemcpyAsync|MemsetAsync)")
 
 
@@ -678,19 +709,21 @@ def kernel_rows(kernel, plain, bound, params, batches, gen, close, contrast=None
             fails = close(out_k, out_p)
             check(not fails, f"kernel disagrees with plain at B={B} {sname}: {fails}")
             iters = 20 if B >= 10000 else 50
-            ms, g_ms = cuda_ms(lambda: kernel(x, layers), iters), graph_ms(lambda: kernel(x, layers))
+            # From 10000 rows a call takes 0.2-3 ms: 5 rounds of 20 replayed calls keep the script in its budget.
+            g_kw = {"rounds": 5} if B >= 10000 else {}
+            ms, g_ms = cuda_ms(lambda: kernel(x, layers), iters), graph_ms(lambda: kernel(x, layers), **g_kw)
             bounds = bound(B, layers)
             flops = bounds.pop("flops")
             row = {"B": B, "subnet": sname, "shape": [layers[0]["w"].shape[0], layers[-1]["w"].shape[1]],
                    "max_abs_err": float(err.max()), "share_within_1e-5": float((err <= 1e-5).float().mean()),
                    "ms": ms, "graph_ms": g_ms, "plain_ms": cuda_ms(lambda: plain(x, layers), iters),
-                   "plain_graph_ms": graph_ms(lambda: plain(x, layers)), **bounds,
+                   "plain_graph_ms": graph_ms(lambda: plain(x, layers), **g_kw), **bounds,
                    "kernel_tflops": flops / ms / 1e9, "roofline_share": bounds["bound_ms"] / ms,
                    "graph_roofline_share": bounds["bound_ms"] / g_ms}
             if beside is not None:
                 name, other, other_params = beside
                 row[f"{name}_ms"] = cuda_ms(lambda: other(x, other_params[0][sname]), iters)
-                row[f"{name}_graph_ms"] = graph_ms(lambda: other(x, other_params[0][sname]))
+                row[f"{name}_graph_ms"] = graph_ms(lambda: other(x, other_params[0][sname]), **g_kw)
             if B in cold_batches and sname == "s1":
                 (row["cold_l2_ms"], row["cold_l2_graph_ms"],
                  row["cold_l2_weight_bytes_per_round"]) = cold_l2_ms(kernel, params, B, gen)
@@ -713,7 +746,7 @@ def kernel_rows(kernel, plain, bound, params, batches, gen, close, contrast=None
 
 
 def kernel_entry(name, specialization, source, launches, max_err, headline, training_launches, cli_launches,
-                 mesh_launches, eager_launches, first_call_launches, training_graph_launches):
+                 mesh_launches, eager_launches, first_call_launches, training_graph_launches, analysis_launches):
     return {
         "name": name,
         "specialization": specialization,
@@ -734,6 +767,7 @@ def kernel_entry(name, specialization, source, launches, max_err, headline, trai
         "eager_main_path_launches": eager_launches,
         "graph_first_call_launches": first_call_launches,
         "training_graph_launches": training_graph_launches,
+        "analysis_launches": analysis_launches,
     }
 
 
@@ -892,9 +926,10 @@ def watch_megabatch():
         fleet._megabatch_capped = capped
 
 
-def run_cli(argv):
-    """``ikflow-torch`` in-process on the card with the kernels' counts set to
-    0 just before. -> (stdout lines, K1 launches, K1' launches, seconds)."""
+def run_cli(argv, entry=None):
+    """``ikflow-torch`` (or another ``main(argv)``, ``entry``) in-process on
+    the card with the kernels' counts set to 0 just before. -> (stdout
+    lines, K1 launches, K1' launches, seconds)."""
     from ikflow_tpu_torch.cli.main import main as cli_main
     from ikflow_tpu_torch.flow.fused_subnet import fused_mlp, fused_mlp_bf16
 
@@ -904,10 +939,10 @@ def run_cli(argv):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
-        rc = cli_main(argv)
+        rc = (entry or cli_main)(argv)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    check(rc == 0, f"{argv[0]} returned {rc}")
+    check(rc == 0, f"{argv[:1]} returned {rc}")
     return buf.getvalue().strip().splitlines(), fused_mlp.launches, fused_mlp_bf16.launches, seconds
 
 
@@ -1019,7 +1054,7 @@ def phase_cli_evaluate(hp, tmp):
     emit("cli_evaluate", t0, reference=EVAL_REFERENCE, rel_tol=EVAL_REL_TOL, self_colliding_band=EVAL_SELF_COLLIDING,
          accuracy=acc, evaluate=plain, refinement={"lines": lines, "seconds": sec, "k1_launches": k1_r,
                                                     "inverse_rows": sorted({r for _, r in inverses})})
-    return k1 + k1_r, refine_rows
+    return k1 + k1_r, refine_rows, acc
 
 
 def phase_cli_evaluate_all(tmp):
@@ -1557,7 +1592,8 @@ def multi_device_phases(hp, solver, solver_bf16, targets, targets_mb, exact_kw, 
 def cli_phases(hp, robot, targets, dev, close_fp32):
     """17-23. The float64 oracle, then the serving command line in-process,
     with every file under a temporary cache tree. -> (K1 launches over the
-    command-line phases, K1's max error in kernel_vs_plain_models)."""
+    command-line phases, K1's max error in kernel_vs_plain_models,
+    ``evaluate``'s accuracy figures)."""
     from ikflow_tpu_torch import config
 
     with tempfile.TemporaryDirectory(prefix="ikflow_chip_cli_") as tmp:
@@ -1567,12 +1603,12 @@ def cli_phases(hp, robot, targets, dev, close_fp32):
         config.TRAINING_LOGS_DIR = os.path.join(config.CACHE_DIR, "training_logs")
         phase_fk_oracle(dev)
         launches = phase_cli_solve(robot, targets, hp)
-        k1, refine_rows = phase_cli_evaluate(hp, tmp)
+        k1, refine_rows, accuracy = phase_cli_evaluate(hp, tmp)
         launches += k1 + phase_cli_evaluate_all(tmp)
         max_err = phase_kernel_vs_plain_models(close_fp32, (1000, EVAL_ROWS, refine_rows), dev)
         launches += phase_cli_benchmark(hp)
         phase_cli_build_dataset(robot, dev, tmp)
-    return launches, max_err
+    return launches, max_err, accuracy
 
 
 def profile_solve(fn):
@@ -2227,6 +2263,210 @@ def graph_phases(hp, solver, solver_bf16, targets, targets_mb, dev):
     return main
 
 
+def finite_positive(x):
+    return isinstance(x, (int, float)) and np.isfinite(x) and x > 0
+
+
+def study_rows(lines):
+    """The JSON rows among a study's lines."""
+    return [json.loads(line) for line in lines if line.startswith("{")]
+
+
+def phase_analysis_lm_convergence():
+    """34. ``lm_convergence_analysis`` on the shipped weights, the full
+    default grid (repeat counts 1, 2, 4, 8 x 2, 3, 5, 10, 20 LM steps) at
+    n = 500: one tier graph per cell. -> K1 launches."""
+    from ikflow_tpu_torch.analysis import lm_convergence_analysis
+
+    t0 = time.perf_counter()
+    lines, k1, k1b, sec = run_cli(["--model_name", MODEL, "--device", "cuda"], lm_convergence_analysis.main)
+    cells = []
+    for line in lines[2:]:
+        r, steps, valid, seconds = line.strip("| ").split(" | ")
+        cells.append({"repeat": int(r), "steps": int(steps), "valid_pct": float(valid), "seconds": float(seconds)})
+    check(len(cells) == 20 and lines[0] == "| repeat | steps | valid % | seconds (n=500) |",
+          f"lm_convergence_analysis: {lines}")
+    check(all(0.0 <= c["valid_pct"] <= 100.0 and finite_positive(c["seconds"]) for c in cells),
+          f"lm_convergence_analysis: a share outside [0, 100] or a time not finite and positive: {cells}")
+    check(k1 > 0 and k1b == 0, f"lm_convergence_analysis ran K1 {k1} times, K1' {k1b} times")
+    emit("analysis_lm_convergence", t0, n=500, cells=cells, kernel_launches=[k1, k1b], study_s=sec)
+    return k1
+
+
+def phase_analysis_inference():
+    """35. ``inference_optimization``: the plain flow and the kernels' flow
+    at 512-32768 rows, fp32 (K1) and ``--bf16`` (K1'), each pass a chain of
+    replayed graphs. -> (K1, K1') launches."""
+    from ikflow_tpu_torch.analysis import inference_optimization
+
+    t0 = time.perf_counter()
+    out, launches = {}, [0, 0]
+    for tag, extra in (("fp32", []), ("bf16", ["--bf16"])):
+        lines, k1, k1b, sec = run_cli(["--device", "cuda"] + extra, inference_optimization.main)
+        rows = study_rows(lines)
+        check(len(rows) == 8 and not any("error" in r for r in rows), f"inference_optimization {tag}: {rows}")
+        check(all(finite_positive(r.get("ms_per_pass")) and finite_positive(r.get("samples_per_s")) for r in rows),
+              f"inference_optimization {tag}: a time not finite and positive: {rows}")
+        check((k1, k1b) == ((k1, 0) if tag == "fp32" else (0, k1b)) and max(k1, k1b) > 0,
+              f"inference_optimization {tag} ran K1 {k1} times, K1' {k1b} times")
+        launches[0] += k1
+        launches[1] += k1b
+        out[tag] = {"rows": rows, "kernel_launches": [k1, k1b], "study_s": sec}
+    emit("analysis_inference", t0, **out)
+    return launches
+
+
+def phase_analysis_refinement(tmp):
+    """36. ``solution_refinement_runtime`` on the shipped weights at batch
+    sizes 100, 500 and 1000 (the JAX default's ten sizes cut to three), k =
+    3: the flow alone, the LM on the card (tiers (1, 3, 10), 3 steps, 1 mm /
+    0.01 rad) and the float64 host LM; the LM on the card solves >= 0.99 at
+    1000. -> K1 launches."""
+    import pickle
+
+    from ikflow_tpu_torch.analysis import solution_refinement_runtime
+
+    t0 = time.perf_counter()
+    pkl = os.path.join(tmp, "refinement.pkl")
+    lines, k1, k1b, sec = run_cli(["--model_name", MODEL, "--batch_sizes"] + [str(n) for n in ANALYSIS_REFINE_SIZES]
+                                  + ["--k", "3", "--out_pickle", pkl, "--device", "cuda"],
+                                  solution_refinement_runtime.main)
+    with open(pkl, "rb") as f:
+        data = pickle.load(f)
+    names = solution_refinement_runtime.solver_names(data)
+    check(names == ["approx", "gpu_lm", "native_lm"], f"solution_refinement_runtime: solvers {names}")
+    table = {s: {k: [float(x) for x in data[s][k]] for k in ("runtimes", "stds", "pct_success")} for s in names}
+    check(all(0.0 <= p <= 1.0 for s in names for p in table[s]["pct_success"]) and
+          all(finite_positive(t) for s in names for t in table[s]["runtimes"]),
+          f"solution_refinement_runtime: a share outside [0, 1] or a time not finite and positive: {table}")
+    check(table["gpu_lm"]["pct_success"][-1] >= CONTRACT_SHARE,
+          f"gpu_lm solves {table['gpu_lm']['pct_success'][-1]} of 1000 poses, under {CONTRACT_SHARE}")
+    check(k1 > 0 and k1b == 0, f"solution_refinement_runtime ran K1 {k1} times, K1' {k1b} times")
+    emit("analysis_refinement", t0, batch_sizes=list(ANALYSIS_REFINE_SIZES), k=3,
+         cut="batch sizes 100, 500, 1000 of the JAX default's 100-1000 in steps of 100", table=table,
+         lines=lines, kernel_launches=[k1, k1b], study_s=sec)
+    return k1
+
+
+def phase_analysis_post_training(solver, evaluate_accuracy):
+    """37. ``post_training_eval`` of the shipped weights at the JAX
+    defaults: the accuracy line within POST_ACCURACY_REL of the JAX script's
+    figure on the same protocol (phase 19's ``evaluate``, whose test poses
+    are free of self-collision, beside it), the block's spread over
+    POST_DRAWS more draws of poses and latents, ``exact_steps3_full`` >=
+    0.99, and the trained flow's kernels against its plain subnets. -> K1
+    launches."""
+    from ikflow_tpu_torch.analysis import post_training_eval
+
+    t0 = time.perf_counter()
+    lines, k1, k1b, sec = run_cli(["--weights", SHIPPED, "--device", "cuda"], post_training_eval.main)
+    rows = {r["protocol"]: r for r in study_rows(lines)}
+    check(list(rows) == ["accuracy_500x50_scale0.75", "exact_steps2_full", "exact_steps3_full", "exact_steps5_full",
+                         "exact_steps3_capped", "exact_steps5_capped", "kernel_vs_plain_numerics"],
+          f"post_training_eval: {lines}")
+    acc = rows["accuracy_500x50_scale0.75"]
+    for key, ref in POST_TRAINING_REFERENCE.items():
+        check(abs(acc[key] - ref) <= POST_ACCURACY_REL * ref,
+              f"post_training_eval {key} {acc[key]} vs the JAX script's {ref} on the same protocol")
+    draws = []
+    for seed in range(1, POST_DRAWS + 1):
+        g = torch.Generator(device=solver.device).manual_seed(seed)
+        testset = post_training_eval.study_poses(solver.robot, 500, g)
+        latent = 0.75 * torch.randn((500 * 50, solver.network_width), generator=g, device=solver.device)
+        draws.append(post_training_eval.accuracy(solver, testset, latent))
+    exact = [r for name, r in rows.items() if name.startswith("exact_")]
+    check(all(0.0 <= r["valid_fraction"] <= 1.0 and finite_positive(r["seconds"]) for r in exact),
+          f"post_training_eval: a share outside [0, 1] or a time not finite and positive: {exact}")
+    check(rows["exact_steps3_full"]["valid_fraction"] >= CONTRACT_SHARE,
+          f"post_training_eval exact_steps3_full: {rows['exact_steps3_full']}")
+    numerics = rows.get("kernel_vs_plain_numerics", {})
+    check(all(np.isfinite(v) for k, v in numerics.items() if k != "protocol"), f"post_training_eval: {numerics}")
+    check(k1 > 0 and k1b == 0, f"post_training_eval ran K1 {k1} times, K1' {k1b} times")
+    emit("analysis_post_training", t0, rows=list(rows.values()), reference=POST_TRAINING_REFERENCE,
+         rel_tol=POST_ACCURACY_REL, evaluate_accuracy=evaluate_accuracy,
+         more_draws={k: [d[k] for d in draws] for k in ("mean_l2_error_mm", "mean_angular_error_deg",
+                                                         "pct_self_colliding")},
+         kernel_launches=[k1, k1b], study_s=sec, loaded=lines[0])
+    return k1
+
+
+def phase_analysis_latent_stats(solver, tmp):
+    """38. ``latent_distribution_stats`` on the shipped weights at 100 poses
+    x 20 solutions; the solution-family render only where matplotlib is
+    installed. -> K1 launches."""
+    import importlib.util
+
+    from ikflow_tpu_torch.analysis import robot_visualizations
+
+    t0 = time.perf_counter()
+    _count_reset()
+    rows = robot_visualizations.latent_distribution_stats(solver, *ANALYSIS_LATENT)
+    k1, k1b = _counts()
+    check(len(rows) == 10 and all(finite_positive(mm) and finite_positive(deg) for _, _, mm, deg in rows),
+          f"latent_distribution_stats: {rows}")
+    check(k1 > 0 and k1b == 0, f"latent_distribution_stats ran K1 {k1} times, K1' {k1b} times")
+    matplotlib = importlib.util.find_spec("matplotlib") is not None
+    render = None
+    if matplotlib:
+        render = robot_visualizations.render_solution_family(solver, 10, os.path.join(tmp, "panda_solutions.png"))
+        render = {"bytes": os.path.getsize(render)}
+    emit("analysis_latent_stats", t0, n_poses=ANALYSIS_LATENT[0], n_sols=ANALYSIS_LATENT[1],
+         rows=[{"distribution": d, "scale": sc, "mean_pos_err_mm": mm, "mean_rot_err_deg": deg}
+               for d, sc, mm, deg in rows], matplotlib_installed=matplotlib, render=render,
+         kernel_launches=[k1, k1b])
+    return k1
+
+
+def phase_analysis_multihost():
+    """39. ``multihost_smoke --device cpu``: two gloo ranks on the card's
+    machine (the backend follows the run's device, not the card's
+    presence); then ``--device cuda``, which on one card refuses, naming
+    the count, before it starts a worker."""
+    import socket
+
+    from ikflow_tpu_torch.analysis import multihost_smoke
+
+    t0 = time.perf_counter()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        os.environ["IKFLOW_TPU_MH_PORT"] = str(sock.getsockname()[1])
+    lines, k1, k1b, sec = run_cli(["--device", "cpu"], multihost_smoke.main)
+    check(lines[-1] == "MULTIHOST SMOKE: PASS" and sum("train step ok" in x for x in lines) == 2
+          and sum("exact-IK ok on 32 cross-process poses" in x for x in lines) == 2, f"multihost_smoke: {lines}")
+    n_cards = torch.cuda.device_count()
+    refusal = None
+    if n_cards < multihost_smoke.N_PROC:
+        try:
+            multihost_smoke.main(["--device", "cuda"])
+        except RuntimeError as e:
+            refusal = str(e)
+        check(refusal is not None and f"this machine has {n_cards}" in refusal,
+              f"multihost_smoke --device cuda on {n_cards} card(s): {refusal}")
+    emit("analysis_multihost", t0, cpu_lines=lines, cpu_s=sec, cards=n_cards, cuda_refusal=refusal)
+
+
+def analysis_phases(solver, evaluate_accuracy):
+    """34-39. The analysis studies in-process on the graphs (the library's
+    default), each with the kernels' counts set to 0 just before it and read
+    just after. -> {kernel: launches its wrapper counted over the studies}."""
+    from ikflow_tpu_torch.solver import IKFlowSolver
+
+    t_all = time.perf_counter()
+    IKFlowSolver.use_graphs = True
+    launches = {"fused_mlp": 0, "fused_mlp_bf16": 0}
+    launches["fused_mlp"] += phase_analysis_lm_convergence()
+    k1, k1b = phase_analysis_inference()
+    launches["fused_mlp"] += k1
+    launches["fused_mlp_bf16"] += k1b
+    with tempfile.TemporaryDirectory(prefix="ikflow_chip_analysis_") as tmp:
+        launches["fused_mlp"] += phase_analysis_refinement(tmp)
+        launches["fused_mlp"] += phase_analysis_post_training(solver, evaluate_accuracy)
+        launches["fused_mlp"] += phase_analysis_latent_stats(solver, tmp)
+    phase_analysis_multihost()
+    print(json.dumps({"analysis_phases_seconds": round(time.perf_counter() - t_all, 3)}), flush=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device available; this script runs on the GPU only")
@@ -2240,7 +2480,6 @@ def main():
         fused_mlp_plain,
         split_tf32,
     )
-    from ikflow_tpu_torch.flow.model import build_flow
     from ikflow_tpu_torch.parallel.fleet import solve_exact_megabatch
     from ikflow_tpu_torch.registry import get_ik_solver
     from ikflow_tpu_torch.robots import native_oracle
@@ -2468,8 +2707,6 @@ def main():
         from seed 1000 + d, 64 of the targets); the one-draw reading (the
         draw this phase made before the bar) with the fp32 flow beside it."""
         t0 = time.perf_counter()
-        plain_flow = build_flow(slv.flow.hp, robot)
-        plain_flow._subnet_kernel = fused_mlp_bf16_plain  # the witness: plain sums on the card
         latent = torch.randn((64, hp.dim_latent_space), generator=gen, device=dev)
         q_card, _ = slv.flow.inverse(slv._kernel_params, latent, targets[:64])
         q_cpu, _ = slv.flow.inverse(params_cpu, latent.cpu(), targets[:64].cpu())
@@ -2484,8 +2721,10 @@ def main():
                             device=dev)
             cond = targets[64 * (d % 15): 64 * (d % 15) + 64]
             ref, _ = slv.flow.inverse(params_cpu, z.cpu(), cond.cpu())
-            for name, (f, p) in (("kernel", (slv.flow, slv._kernel_params)), ("plain_card", (plain_flow, slv.params))):
-                maxes[name].append(float((f.inverse(p, z, cond)[0].cpu() - ref).abs().max()))
+            # the witness: plain sums on the card
+            for name, q in (("kernel", slv.flow.inverse(slv._kernel_params, z, cond)[0]),
+                            ("plain_card", slv.flow.inverse_plain(slv.params, z, cond)[0])):
+                maxes[name].append(float((q.cpu() - ref).abs().max()))
         over = {k: sum(m > FLOW_BF16_ATOL for m in v) for k, v in maxes.items()}
         median = {k: float(np.median(v)) for k, v in maxes.items()}
         check(over["kernel"] <= over["plain_card"] + FLOW_BF16_DRAW_MARGIN,
@@ -2597,7 +2836,7 @@ def main():
 
     # 17-23. The float64 oracle and the serving command line.
     fused_mlp_bf16.launches = 0
-    cli_launches, max_err_m = cli_phases(hp, robot, targets, dev, close_fp32)
+    cli_launches, max_err_m, cli_accuracy = cli_phases(hp, robot, targets, dev, close_fp32)
     check(fused_mlp_bf16.launches == 0, f"the command-line phases ran K1' {fused_mlp_bf16.launches} times")
 
     # 24-30. Several devices, the FrEIA import, visualize and the examples.
@@ -2611,6 +2850,9 @@ def main():
     with tempfile.TemporaryDirectory(prefix="ikflow_chip_smoke_") as tmp:
         training_graph = phase_graphs_training(hp, robot, ds, targets, exact_kw, dev, tmp)
 
+    # 34-39. The analysis studies on the graphs.
+    analysis_launches = analysis_phases(solver, cli_accuracy)
+
     print(json.dumps({"kernels": [
         kernel_entry("fused_mlp", "bf16_hidden=False: fp32 contract, hidden layers 3xTF32 on wgmma m64n128k8 "
                      "with packed tf32 hi/lo weight planes, 64-row tiles split over 8-CTA clusters, "
@@ -2618,7 +2860,7 @@ def main():
                      "ikflow_tpu_torch/csrc/fused_mlp.cu", graph_main["fused_mlp"][0],
                      max(max_err, max_err_p, max_err_t, max_err_m, max_err_mesh), headline,
                      training_launches["fused_mlp"], cli_launches, mesh_launches["fused_mlp"], main_path_launches,
-                     graph_main["fused_mlp"][1], training_graph["fused_mlp"]),
+                     graph_main["fused_mlp"][1], training_graph["fused_mlp"], analysis_launches["fused_mlp"]),
         kernel_entry("fused_mlp_bf16", "bf16_hidden=True: hidden layers bf16 on wgmma m64n128k16 with fp32 "
                      "accumulation, 64-row tiles split over 8-CTA clusters, weights packed once and streamed by "
                      "cp.async.bulk into a 4-slot mbarrier ring, activations pulled from the peers over DSMEM by a "
@@ -2626,7 +2868,8 @@ def main():
                      "ikflow_tpu_torch/csrc/fused_mlp_bf16.cu", graph_main["fused_mlp_bf16"][0],
                      max(max_err_b, max_err_pb, max_err_tb, max_err_mesh_b),
                      headline_b, training_launches["fused_mlp_bf16"], 0, mesh_launches["fused_mlp_bf16"],
-                     main_path_launches_bf16, graph_main["fused_mlp_bf16"][1], training_graph["fused_mlp_bf16"]),
+                     main_path_launches_bf16, graph_main["fused_mlp_bf16"][1], training_graph["fused_mlp_bf16"],
+                     analysis_launches["fused_mlp_bf16"]),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"total_seconds": round(time.perf_counter() - t_all, 3)}), flush=True)

@@ -97,12 +97,15 @@ def _file_sha256(path: str):
 def run(args: argparse.Namespace) -> int:
     import torch
 
+    from ikflow_tpu_torch import config
     from ikflow_tpu_torch.parallel.mesh import initialize_multihost, make_mesh
 
+    device = config.resolve_device(args.device)
     if args.data_parallel:
-        initialize_multihost()  # a no-op unless the environment marks a multi-process launch
+        # A no-op unless the environment marks a multi-process launch; the
+        # backend follows the run's device.
+        initialize_multihost(device=device)
 
-    from ikflow_tpu_torch import config
     from ikflow_tpu_torch.flow import FlowHyperParams, build_flow
     from ikflow_tpu_torch.robots import get_robot
     from ikflow_tpu_torch.training import TrainConfig, Trainer, build_dataset, load_dataset
@@ -115,7 +118,6 @@ def run(args: argparse.Namespace) -> int:
     )
     from ikflow_tpu_torch.training.dataset import build_dataset_resident, dataset_directory, save_dataset
 
-    device = config.resolve_device(args.device)
     hp = FlowHyperParams(
         coupling_layer=args.coupling_layer,
         nb_nodes=args.nb_nodes,

@@ -13,9 +13,10 @@ layer ``{"w": (K, N), "b": (N,)}``: the JAX pytree's structure.
 ``forward`` (q -> z, with logdet) runs the plain subnet. ``inverse``
 (z -> q, the inference path) runs every subnet through ``fused_mlp`` (K1), or
 ``fused_mlp_bf16`` (K1') when ``hp.bf16_hidden``: the CUDA kernel for tensors
-on the card, its plain version on the CPU. Both read their hidden weights
-packed once per parameter set by ``kernel_params``: K1 as tf32 hi/lo planes
-(on the card only), K1' as bf16.
+on the card, its plain version on the CPU. Both kernels read their hidden
+weights packed once per parameter set by ``kernel_params``: K1 as tf32 hi/lo
+planes (on the card only), K1' as bf16. ``inverse_plain`` runs the plain
+versions on any device (the analysis studies' reference).
 """
 
 from __future__ import annotations
@@ -166,12 +167,12 @@ class GlowFlow:
         y2 = x2 * torch.exp(s1) + a1[:, self.split2 :]
         return torch.cat([y1, y2], dim=1), s1.sum(dim=1) + s2.sum(dim=1)
 
-    def _couple_inverse(self, block, y: torch.Tensor, cond: torch.Tensor):
+    def _couple_inverse(self, block, y: torch.Tensor, cond: torch.Tensor, subnet):
         y1, y2 = y[:, : self.split1], y[:, self.split1 :]
-        a1 = self._subnet_kernel(torch.cat([y1, cond], dim=1), block["s1"])
+        a1 = subnet(torch.cat([y1, cond], dim=1), block["s1"])
         s1 = self._clamped(a1[:, : self.split2])
         x2 = (y2 - a1[:, self.split2 :]) * torch.exp(-s1)
-        a2 = self._subnet_kernel(torch.cat([x2, cond], dim=1), block["s2"])
+        a2 = subnet(torch.cat([x2, cond], dim=1), block["s2"])
         s2 = self._clamped(a2[:, : self.split1])
         x1 = (y1 - a2[:, self.split1 :]) * torch.exp(-s2)
         return torch.cat([x1, x2], dim=1), -(s1.sum(dim=1) + s2.sum(dim=1))
@@ -216,12 +217,22 @@ class GlowFlow:
     def inverse(self, params, z: torch.Tensor, cond: torch.Tensor):
         """Latent z (n, D) -> q-space, with log|det J| of the inverse map.
         On the card a bf16 flow needs ``kernel_params(params)``."""
+        return self._inverse(params, z, cond, self._subnet_kernel)
+
+    def inverse_plain(self, params, z: torch.Tensor, cond: torch.Tensor):
+        """``inverse`` with every subnet through its plain version, on any
+        device, from the unpacked ``params``: the whole-flow reference the
+        kernels are held to (the JAX package's XLA ``inverse`` beside its
+        ``inverse_fused``). The solver never calls it."""
+        return self._inverse(params, z, cond, self._subnet_plain)
+
+    def _inverse(self, params, z: torch.Tensor, cond: torch.Tensor, subnet):
         self._check_inputs(z, cond)
         c = self._constants(z.device, z.dtype)
         h = z
         logdet = torch.zeros((z.shape[0],), dtype=z.dtype, device=z.device)
         for i in reversed(range(len(params))):
-            h, ld = self._couple_inverse(params[i], h, cond)
+            h, ld = self._couple_inverse(params[i], h, cond, subnet)
             logdet = logdet + ld
             h = h[:, c["inv_perms"][i]]
         h, ld = self._head_inverse(h)

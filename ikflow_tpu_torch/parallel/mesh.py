@@ -120,6 +120,7 @@ def initialize_multihost(
     coordinator_address: Optional[str] = None,
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
+    device=None,
 ) -> None:
     """Join the ``torch.distributed`` process group of a multi-process run.
 
@@ -130,12 +131,20 @@ def initialize_multihost(
     ``MASTER_ADDR`` and ``MASTER_PORT``). On a plain machine, and when a
     group exists already, it does nothing. On a marked host a failure to
     join raises: a cluster that does not form is an error, not a
-    single-process run. The backend is NCCL with a card, else gloo."""
+    single-process run.
+
+    The backend follows ``device``, the device of the run: NCCL for a CUDA
+    device, gloo for any other (a CPU run on a machine with a card
+    all-reduces CPU tensors, which NCCL cannot). With no device named it is
+    NCCL where there is a card, else gloo."""
     import torch.distributed as dist
 
     if dist.is_initialized():
         return
-    backend = "nccl" if torch.cuda.is_available() else "gloo"
+    if device is None:
+        backend = "nccl" if torch.cuda.is_available() else "gloo"
+    else:
+        backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
     if coordinator_address is not None:
         dist.init_process_group(backend, init_method=f"tcp://{coordinator_address}", world_size=num_processes,
                                 rank=process_id)
