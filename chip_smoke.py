@@ -142,8 +142,8 @@ import faulthandler; faulthandler.dump_traceback_later(600, exit=True)  # noqa: 
 #     off for phases 5-30) against its eager path, from the same seeds:
 #     ``fit_on_device`` of panda__full__sigmoid's architecture at full width
 #     from ``flow.init`` (batch 512, adamw, phase 13's resident rows), fp32
-#     over GRAPH_TRAIN_WINDOWS windows of 100 steps and bf16 over windows of
-#     50, on each path, with equal window losses and parameters bit for bit,
+#     over GRAPH_TRAIN_WINDOWS windows of 50 steps and bf16 over windows of
+#     25 (GRAPH_TRAIN_WINDOW_STEPS), on each path, with equal window losses and parameters bit for bit,
 #     ms per step (CUDA events), and the last window traced (device ms, idle
 #     share, host launch calls and kernels per step), the capture and the
 #     peak memory; three validations in one run's scope equal to eager, the
@@ -172,6 +172,32 @@ import faulthandler; faulthandler.dump_traceback_later(600, exit=True)  # noqa: 
 #     is installed) and analysis_multihost (two gloo ranks with ``--device
 #     cpu`` on this machine, then the ``--device cuda`` refusal on one card).
 #
+# 40. graphs_training_mesh: the data-parallel trainer (``Trainer(mesh=)``) on
+#     the graphs at full width on [cuda:0, cuda:0], where one captured graph
+#     holds the whole step: DP_STEPS steps of phase 27's batches through the
+#     mesh's step on the graphs against its eager step (the gradients of the
+#     first step and of the first replayed one, the losses and the final
+#     parameters equal bit for bit) and against the unsharded step on the
+#     graphs (within DP_GRAD_REL and DP_PARAM_REL, the reordered witness
+#     beside it); ``fit_on_device`` windows of the mesh on the graphs, the
+#     mesh eager and the unsharded graphs (ms per step, a traced window's
+#     device ms, idle share and host launch calls, the capture and peak
+#     memory); mesh validations (fp32 and bf16) on the graphs against eager,
+#     a replay traced with the counts set to 0 (2 x blocks K1 or K1'
+#     kernels); ``train --data_parallel --on_device_data`` for two windows on
+#     the graphs.
+# 41. dev_tools: the artifact tools (``ikflow_tpu_torch/scripts_dev/``) on
+#     shipped weights at full width: ``convert_softflow_init`` of panda__full
+#     (max |dq| < 1e-5, both inverses through K1), ``grow_flow_init`` from 6
+#     blocks to 12 of the shipped panda__full_sigmoid's first 6 blocks,
+#     exported by ``export_deploy`` (|dNLL| < 1e-3; the grown artifact and
+#     its source serve the 1000 poses exactly, valid shares within
+#     GROW_SHARE_GAP), ``export_from_checkpoint`` from phase 33's
+#     ``train`` run through the registry's 13.0 mm gate, served back (>= 99%
+#     exact), ``stamp_quality_headers`` on a copy of the shipped
+#     panda__full_sigmoid (its val l2 beside the shipped header's), and
+#     ``stamp_warm_start`` on the grown artifact.
+#
 # The kernels line's ``launches`` is the count of each kernel in the trace
 # of the replayed main path of phase 31; ``eager_main_path_launches`` is
 # what the wrappers counted over the eager main path of phases 5-6 and 9,
@@ -179,9 +205,11 @@ import faulthandler; faulthandler.dump_traceback_later(600, exit=True)  # noqa: 
 # ``training_graph_launches`` the kernels in a validation replay's trace
 # (phase 33), ``analysis_launches`` what the wrappers counted over phases
 # 34-38 (the studies' eager first calls and warm-up passes; replays are not
-# counted).
+# counted), ``mesh_training_graph_launches`` the kernels in a mesh validation
+# replay's trace (phase 40), ``dev_tools_launches`` what the wrappers counted
+# over the tools and the solves of their artifacts (phase 41).
 #
-# Phases 13-15, 17-30, 33 and 36-38 write every file (cache, datasets, run directory,
+# Phases 13-15, 17-30, 33, 36-38 and 40-41 write every file (cache, datasets, run directory,
 # checkpoints, the export, the performances table, the HTML scenes) under
 # temporary directories that are removed at the end.
 #
@@ -204,6 +232,7 @@ import io  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import re  # noqa: E402
+import shutil  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
 import tempfile  # noqa: E402
@@ -274,9 +303,12 @@ FK_DATASET_POS = 1e-5  # metres: stored poses vs the float64 FK of their rows
 FK_DATASET_ROT = 1e-4  # radians
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_WINDOW = 300, 512, 100
 TRAIN_BF16_STEPS, TRAIN_BF16_WINDOW = 100, 50
-# Phase 33: each path runs this many windows (the first holds the eager first
-# step and the capture, the last is traced), and fit FIT_STEPS host batches.
+# Phase 33: each path runs this many windows of these steps (the first holds
+# the eager first step and the capture, the last is traced; half the windows
+# of phase 14, to keep the whole script within its time budget), and fit
+# FIT_STEPS host batches.
 GRAPH_TRAIN_WINDOWS = 4
+GRAPH_TRAIN_WINDOW_STEPS = {"fp32": 50, "bf16": 25}
 FIT_STEPS, N_FIT_ROWS = 20, 100_000
 WARM_STEPS = 200
 WARM_VAL_RATIO = 0.10  # the exported weights' val l2 error within 10% of the shipped weights'
@@ -318,6 +350,15 @@ DP_POOL, DP_BATCH, DP_STEPS = 20_000, 512, 20
 DP_GRAD_REL = 1e-3
 DP_HALVES_REL = 1e-5
 DP_PARAM_REL = 1e-3
+# Phase 40: the mesh trainer's fit_on_device windows on each path (the
+# first holds the eager first step and the capture, the last is traced).
+MESH_WINDOWS, MESH_WINDOW = 4, 10
+# Phase 41: the grown artifact and its source serve the same 1000 poses with
+# other latent draws (the new blocks permute the latent), so their exact
+# valid shares differ by sampling alone.
+GROW_SHARE_GAP = 0.01
+GROW_FROM = 6  # phase 41 grows the first 6 blocks of the shipped MODEL back to its 12
+STAMP_GATE_MM = 13.0  # the registry's export gate of MODEL
 VIZ_FRAMES = 24
 VIZ_FK_ATOL = 1e-5  # capsule end points, metres: fp32 FK on the card vs the CPU
 EXAMPLES_TIMEOUT_S = 300
@@ -746,7 +787,8 @@ def kernel_rows(kernel, plain, bound, params, batches, gen, close, contrast=None
 
 
 def kernel_entry(name, specialization, source, launches, max_err, headline, training_launches, cli_launches,
-                 mesh_launches, eager_launches, first_call_launches, training_graph_launches, analysis_launches):
+                 mesh_launches, eager_launches, first_call_launches, training_graph_launches, analysis_launches,
+                 mesh_graph_launches, dev_tools_launches):
     return {
         "name": name,
         "specialization": specialization,
@@ -768,6 +810,8 @@ def kernel_entry(name, specialization, source, launches, max_err, headline, trai
         "graph_first_call_launches": first_call_launches,
         "training_graph_launches": training_graph_launches,
         "analysis_launches": analysis_launches,
+        "mesh_training_graph_launches": mesh_graph_launches,
+        "dev_tools_launches": dev_tools_launches,
     }
 
 
@@ -2043,9 +2087,10 @@ def phase_graphs_cli(targets):
     emit("graphs_cli", t0, **report)
 
 
-def train_windows(flow, robot, ds, dev, cfg, window, graphs):
+def train_windows(flow, robot, ds, dev, cfg, window, graphs, mesh=None):
     """``Trainer.fit_on_device`` from ``flow.init`` (seed 0) over
-    ``cfg.n_steps // window`` windows, on the graphs or eager, the last
+    ``cfg.n_steps // window`` windows (on ``mesh`` where given), on the
+    graphs or eager, the last
     window under torch.profiler. -> (params, summary): every window's losses,
     ms per step of the untraced windows (CUDA events at the window ends; the
     first holds the eager first step and the capture), the traced window's
@@ -2058,7 +2103,7 @@ def train_windows(flow, robot, ds, dev, cfg, window, graphs):
     n_windows = cfg.n_steps // window
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     windows, events, state = [], [], {}
-    trainer = Trainer(flow, robot, cfg, device=dev)
+    trainer = Trainer(flow, robot, cfg, device=dev, mesh=mesh)
     trainer.use_graphs = graphs
 
     def hook(step, metrics):
@@ -2133,7 +2178,7 @@ def phase_graphs_training(hp, robot, ds, targets, exact_kw, dev, tmp):
     t0 = time.perf_counter()
     report, traced_val = {}, {}
     flows = {"fp32": build_flow(hp, robot), "bf16": build_flow(dataclasses.replace(hp, bf16_hidden=True), robot)}
-    sizes = {"fp32": (GRAPH_TRAIN_WINDOWS, TRAIN_WINDOW), "bf16": (GRAPH_TRAIN_WINDOWS, TRAIN_BF16_WINDOW)}
+    sizes = {name: (GRAPH_TRAIN_WINDOWS, steps) for name, steps in GRAPH_TRAIN_WINDOW_STEPS.items()}
     for name, flow in flows.items():
         n_windows, window = sizes[name]
         cfg = TrainConfig(n_steps=n_windows * window, batch_size=TRAIN_BATCH, learning_rate=1e-4, log_every=window,
@@ -2298,9 +2343,14 @@ def phase_analysis_inference():
     at 512-32768 rows, fp32 (K1) and ``--bf16`` (K1'), each pass a chain of
     replayed graphs. -> (K1, K1') launches."""
     from ikflow_tpu_torch.analysis import inference_optimization
+    from ikflow_tpu_torch.flow import FlowHyperParams, build_flow
+    from ikflow_tpu_torch.robots import get_robot
 
     t0 = time.perf_counter()
     out, launches = {}, [0, 0]
+    hp = FlowHyperParams()
+    hp.dim_latent_space = 7  # the study's architecture (inference_optimization.study_flow)
+    flow = build_flow(hp, get_robot("panda"))
     for tag, extra in (("fp32", []), ("bf16", ["--bf16"])):
         lines, k1, k1b, sec = run_cli(["--device", "cuda"] + extra, inference_optimization.main)
         rows = study_rows(lines)
@@ -2311,9 +2361,20 @@ def phase_analysis_inference():
               f"inference_optimization {tag} ran K1 {k1} times, K1' {k1b} times")
         launches[0] += k1
         launches[1] += k1b
-        out[tag] = {"rows": rows, "kernel_launches": [k1, k1b], "study_s": sec}
+        bound = subnet_bound_bf16 if tag == "bf16" else subnet_bound
+        out[tag] = {"rows": rows, "kernel_launches": [k1, k1b], "study_s": sec,
+                    "flow_bound_ms": {r["batch"]: flow_bound_ms(bound, flow, r["batch"])
+                                      for r in rows if r["backend"] == "kernel"}}
     emit("analysis_inference", t0, **out)
     return launches
+
+
+def flow_bound_ms(bound, flow, B):
+    """The kernel's bound for one pass of ``flow``'s inverse at ``B`` rows:
+    ``bound`` (``subnet_bound`` or ``subnet_bound_bf16``) summed over its
+    subnet calls, each at its own layer shapes."""
+    return sum(bound(B, [{k: torch.empty(shape, device="meta") for k, shape in lay.items()} for lay in blk[s]])[
+        "bound_ms"] for blk in flow.param_shapes() for s in ("s1", "s2"))
 
 
 def phase_analysis_refinement(tmp):
@@ -2465,6 +2526,257 @@ def analysis_phases(solver, evaluate_accuracy):
     phase_analysis_multihost()
     print(json.dumps({"analysis_phases_seconds": round(time.perf_counter() - t_all, 3)}), flush=True)
     return launches
+
+
+def phase_graphs_training_mesh(hp, robot, dev, tmp, smi):
+    """40. The data-parallel trainer on the graphs, at full width on
+    [cuda:0, cuda:0] (one card: one graph holds the step), from phase 27's
+    pool and batches: DP_STEPS steps through the mesh's step on the graphs,
+    eager, and unsharded on the graphs (and on each batch's rows reversed,
+    the witness of fp32 rounding), with the gradients of the first step (an
+    eager call on every path) and of the first replayed step (the third)
+    kept; ``fit_on_device`` windows on each path (ms per step, the last
+    window traced); three mesh validations in one run's scope against eager,
+    fp32 and bf16, and a replay traced with the counts set to 0; then
+    ``train --data_parallel --on_device_data`` in-process for two windows.
+    -> {kernel: its kernels in a mesh validation replay's trace}."""
+    from ikflow_tpu_torch.flow.model import build_flow
+    from ikflow_tpu_torch.parallel.mesh import make_mesh
+    from ikflow_tpu_torch.training import IkDataset, TrainConfig, Trainer
+    from ikflow_tpu_torch.training.common import tree_leaves
+
+    t0 = time.perf_counter()
+    flow = build_flow(hp, robot)
+    params = flow.init(torch.Generator(device=dev).manual_seed(0))
+    g = torch.Generator(device=dev).manual_seed(12)
+    pool_q = robot.sample_joint_angles(DP_POOL, g, joint_limit_eps=0.004363)
+    pool_poses = robot.forward_kinematics(pool_q)
+    idx = [torch.randint(0, DP_POOL, (DP_BATCH,), generator=g, device=dev) for _ in range(DP_STEPS)]
+    mesh = make_mesh([dev, dev])
+
+    def steps(mesh_, graphs, order):
+        trainer = Trainer(flow, robot, TrainConfig(batch_size=DP_BATCH, learning_rate=1e-4), device=dev, mesh=mesh_)
+        trainer.use_graphs = graphs
+        p, optimizer, _ = trainer._start(params, None, 0)
+        seen = [torch.empty_like(t) for t in optimizer.params]
+        update = optimizer.update
+
+        def kept(grads):  # each step's gradients before clipping, copied inside the graph too
+            for s_, x in zip(seen, grads):
+                s_.copy_(x)
+            update(grads)
+
+        optimizer.update = kept
+        ng = torch.Generator(device=dev).manual_seed(13)
+        grads, losses = {}, []
+        with trainer.graph_scope() as cache:
+            step = trainer._stepper(("mesh_steps", DP_BATCH), p, optimizer, pool_q, pool_poses, with_metrics=False)
+            for i in range(DP_STEPS):
+                noise = trainer._noise_inputs(trainer.loss_fn.draw(pool_q[:DP_BATCH], ng))
+                losses.append(step(order[i], *noise)[0])
+                if i in (0, 2):
+                    grads[i + 1] = [t.clone() for t in seen]
+            captures = None if cache is None else (cache.captures, cache.replays)
+        return {"leaves": [t.detach() for t in tree_leaves(p)], "grads": grads,
+                "losses": torch.stack(losses).cpu().tolist(), "captures_replays": captures}
+
+    runs = {"mesh_graphs": steps(mesh, True, idx), "mesh_eager": steps(mesh, False, idx),
+            "unsharded_graphs": steps(None, True, idx), "reordered_graphs": steps(None, True, [i.flip(0) for i in idx])}
+    a, e, u, w = (runs[k] for k in ("mesh_graphs", "mesh_eager", "unsharded_graphs", "reordered_graphs"))
+    same = (all(torch.equal(x, y) for i in (1, 3) for x, y in zip(a["grads"][i], e["grads"][i]))
+            and all(torch.equal(x, y) for x, y in zip(a["leaves"], e["leaves"])) and a["losses"] == e["losses"])
+    check(same, "graphs_training_mesh: the mesh's graph step differs from its eager step")
+    check(a["captures_replays"] == (1, DP_STEPS - 1), f"mesh graphs: (captures, replays) {a['captures_replays']}")
+
+    def rel_l2(xs, ys):
+        num = sum(float(((x - y).double() ** 2).sum()) for x, y in zip(xs, ys))
+        return (num / sum(float((x.double() ** 2).sum()) for x in xs)) ** 0.5
+
+    gaps = {f"grad_step{i}_rel_l2": rel_l2(u["grads"][i], a["grads"][i]) for i in (1, 3)}
+    gaps.update({f"reordered_grad_step{i}_rel_l2": rel_l2(u["grads"][i], w["grads"][i]) for i in (1, 3)})
+    gaps.update(param_rel_l2=rel_l2(u["leaves"], a["leaves"]), reordered_param_rel_l2=rel_l2(u["leaves"], w["leaves"]))
+    check(gaps["grad_step1_rel_l2"] <= DP_GRAD_REL and gaps["grad_step3_rel_l2"] <= DP_GRAD_REL,
+          f"mesh vs unsharded gradients on the graphs: {gaps}")
+    check(gaps["param_rel_l2"] <= DP_PARAM_REL, f"mesh vs unsharded parameters on the graphs: {gaps}")
+    first, last = np.mean(a["losses"][:5]), np.mean(a["losses"][-5:])
+    check(np.isfinite(a["losses"]).all() and last < first, f"the loss did not fall: {a['losses']}")
+
+    # fit_on_device windows on each path, from phase 27's pool as the resident split.
+    te = pool_poses[:N_DATASET_TEST // 10].cpu().numpy()
+    ds = IkDataset(pool_q, pool_poses, pool_q[: te.shape[0]].cpu().numpy(), te, robot.name)
+    cfg = TrainConfig(n_steps=MESH_WINDOWS * MESH_WINDOW, batch_size=DP_BATCH, learning_rate=1e-4,
+                      log_every=MESH_WINDOW, eval_every=0, checkpoint_every=0, seed=0)
+    windows = {name: train_windows(flow, robot, ds, dev, cfg, MESH_WINDOW, graphs, mesh_)
+               for name, graphs, mesh_ in (("mesh_graphs", True, mesh), ("mesh_eager", False, mesh),
+                                            ("unsharded_graphs", True, None))}
+    gap = param_gap(windows["mesh_graphs"][0], windows["mesh_eager"][0])
+    check(gap == 0.0 and windows["mesh_graphs"][1]["window_losses"] == windows["mesh_eager"][1]["window_losses"],
+          f"graphs_training_mesh windows: the graphs differ from eager by {gap}")
+
+    # Validation on the mesh: three in one run's scope against eager, then a
+    # replay traced with the counts set to 0 just before.
+    traced_val, validation = {}, {}
+    trained = windows["mesh_graphs"][0]
+    for name, vflow in (("fp32", flow), ("bf16", build_flow(dataclasses.replace(hp, bf16_hidden=True), robot))):
+        mine = int(vflow.hp.bf16_hidden)
+        vcfg = TrainConfig()
+        latents = [torch.randn((vcfg.val_set_size * vcfg.samples_per_pose, vflow.D),
+                               generator=torch.Generator(device=dev).manual_seed(30 + i), device=dev) for i in range(3)]
+        eager_tr, graph_tr = Trainer(vflow, robot, vcfg, device=dev, mesh=mesh), Trainer(vflow, robot, vcfg, mesh=mesh)
+        eager_tr.use_graphs, graph_tr.use_graphs = False, True
+        ref = [eager_tr.validate(trained, ds, latents=z) for z in latents]
+        with graph_tr.graph_scope() as cache:
+            for i, z in enumerate(latents):
+                check(graph_tr.validate(trained, ds, latents=z) == ref[i], f"mesh validation {name} {i} != eager")
+            traces = []
+            for _ in range(3):  # a trace may miss device events late in this script: the fullest of three
+                got, launches, counted = traced_launches(lambda: graph_tr.validate(trained, ds, latents=latents[0]))
+                check(got == ref[0] and counted == (0, 0), f"mesh validation {name}: {got}, wrappers {counted}")
+                traces.append(launches)
+                if launches[mine] == 2 * hp.nb_nodes:
+                    break
+            best = max(traces, key=lambda k: k[mine])
+            check(best[mine] == 2 * hp.nb_nodes and best[1 - mine] == 0,
+                  f"mesh validation {name}: replay traces hold (K1, K1') {traces}")
+            validation[name] = {"captures": cache.captures, "replays": cache.replays, "traces": traces,
+                                "val_l2_error_mm": ref[0]["val/l2_error_mm"]}
+        traced_val["fused_mlp_bf16" if mine else "fused_mlp"] = best[mine]
+
+    # The command: two windows of --steps_per_call on the graphs.
+    made, new_graphs = [], Trainer._new_graphs
+    Trainer._new_graphs = lambda self: made.append(new_graphs(self)) or made[-1]
+    try:
+        argv = ["train", "--robot_name", "panda", "--data_parallel", "--on_device_data", "--nb_nodes",
+                str(hp.nb_nodes), "--dim_latent_space", str(hp.dim_latent_space), "--coeff_fn_config",
+                str(hp.coeff_fn_config), "--coeff_fn_internal_size", str(hp.coeff_fn_internal_size),
+                "--disable_softflow", "--sigmoid_on_output", "--n_steps", str(2 * MESH_WINDOW), "--steps_per_call",
+                str(MESH_WINDOW), "--log_every", str(MESH_WINDOW), "--eval_every", "0", "--checkpoint_every", "0",
+                "--dataset_size", "20000", "--dataset_tags", "chip-data-parallel-graphs", "--run_dir",
+                os.path.join(tmp, "run_dp_graphs")]
+        lines, _, _, cli_s = run_cli(argv)
+    finally:
+        Trainer._new_graphs = new_graphs
+    cli_cache = made[0] if made else None
+    check("data-parallel over 1 devices" in lines and any(x.startswith(f"trained {2 * MESH_WINDOW} steps") for x in lines)
+          and cli_cache is not None and cli_cache.captures == 1 and cli_cache.replays == 2 * MESH_WINDOW - 1,
+          f"train --data_parallel --on_device_data: {lines}, cache {cli_cache and (cli_cache.captures, cli_cache.replays)}")
+    emit("graphs_training_mesh", t0, card=smi, steps=DP_STEPS, batch=DP_BATCH, mesh=[str(d) for d in mesh.devices],
+         graph_equals_eager=True, grad_rel_bound=DP_GRAD_REL, param_rel_bound=DP_PARAM_REL, **gaps,
+         steps_runs={k: {"losses": r["losses"], "captures_replays": r["captures_replays"]} for k, r in runs.items()},
+         windows={k: r[1] for k, r in windows.items()}, windows_equal=True, validation=validation,
+         cli_lines=[x for x in lines if "data-parallel" in x or x.startswith("trained")], cli_seconds=cli_s,
+         cli_captures_replays=[cli_cache.captures, cli_cache.replays])
+    return traced_val
+
+
+def phase_dev_tools(hp, robot, targets, exact_kw, dev, run_dir, smi):
+    """41. The five artifact tools (``ikflow_tpu_torch.scripts_dev``)
+    in-process on the card, on shipped weights at full width: convert
+    ``panda__full`` (softflow, affine head) and read its max |dq| over 64
+    probes; export the first GROW_FROM blocks of the shipped
+    ``panda__full_sigmoid`` (the files of a checkout that the chip's copy
+    carries) as the source, grow it to 12 blocks, read |dNLL|, and serve
+    the grown artifact and its source through the exact protocol on
+    the 1000 poses (valid shares within GROW_SHARE_GAP); export from the
+    checkpoints and metrics.jsonl of ``run_dir`` (a ``train`` run) through
+    the registry's gate, load it and solve; stamp the quality header of a
+    copy of the shipped ``panda__full_sigmoid``; stamp the grown artifact's
+    warm start. -> K1 launches the wrappers counted over the tools."""
+    from ikflow_tpu_torch import config
+    from ikflow_tpu_torch.analysis.post_training_eval import load_solver
+    from ikflow_tpu_torch.flow import FlowHyperParams, build_flow
+    from ikflow_tpu_torch.scripts_dev import (convert_softflow_init, export_from_checkpoint, grow_flow_init,
+                                              stamp_quality_headers, stamp_warm_start)
+    from ikflow_tpu_torch.training.checkpoints import export_deploy, load_deploy, read_deploy_header
+
+    t0 = time.perf_counter()
+    models, report, k1 = os.path.join(ROOT, "models"), {}, 0
+
+    def tool(name, entry, argv):
+        nonlocal k1
+        lines, a, b, seconds = run_cli(argv, entry=entry)
+        check(b == 0, f"{name} ran K1' {b} times")
+        k1 += a
+        report[name] = {"lines": lines, "seconds": seconds, "k1_launches": a}
+        return lines, a
+
+    def solve(path, seed=43):
+        slv, header = load_solver(path, dev)
+        sols, valids, tiers = slv.generate_exact_ik_solutions(
+            targets, generator=torch.Generator(device=dev).manual_seed(seed), **exact_kw)
+        return check_solutions(robot, sols.cpu().numpy(), valids.cpu().numpy(), targets.cpu().numpy(), 0.5, 0.01), header
+
+    with tempfile.TemporaryDirectory(prefix="ikflow_chip_dev_tools_") as tmp:
+        converted = os.path.join(tmp, "panda__full_sigmoid_init.npz")
+        lines, a = tool("convert_softflow_init", convert_softflow_init.main,
+                        [os.path.join(models, "panda__full.npz"), converted, "--device", dev.type])
+        dq = float(re.search(r"max \|dq\| = (\S+)", lines[0]).group(1))
+        header = read_deploy_header(converted)
+        check(dq < 1e-5 and a == 2 * 2 * 12 and header["hyper_parameters"]["sigmoid_on_output"]
+              and not header["hyper_parameters"]["softflow_enabled"] and header["stored_dtype"] == "float16",
+              f"convert_softflow_init: max |dq| {dq}, K1 {a}, header {header}")
+        report["convert_softflow_init"]["max_abs_dq_rad"] = dq
+
+        t_source = time.perf_counter()
+        shipped_hp = FlowHyperParams.from_dict(read_deploy_header(SHIPPED)["hyper_parameters"])
+        shipped, shipped_header = load_deploy(SHIPPED, build_flow(shipped_hp, robot).param_shapes(), "cpu")
+        source_hp = FlowHyperParams.from_dict(dict(shipped_hp.to_dict(), nb_nodes=GROW_FROM))
+        source = export_deploy(os.path.join(tmp, f"panda__full_sigmoid_{GROW_FROM}.npz"), shipped[:GROW_FROM],
+                               source_hp, robot.name, global_step=shipped_header["global_step"], dtype="float16")
+        source_s = time.perf_counter() - t_source
+        grown = os.path.join(tmp, f"panda__full_sigmoid_{GROW_FROM}_to_{hp.nb_nodes}.npz")
+        lines, _ = tool("grow_flow_init", grow_flow_init.main, [source, grown, str(hp.nb_nodes), "--device", dev.type])
+        m = re.search(r"max \|dNLL\| = (\S+), max \|d\|\|z\|\|\| = (\S+)", lines[0])
+        d_nll, d_norm = float(m.group(1)), float(m.group(2))
+        check(d_nll < 1e-3 and d_norm < 1e-3, f"grow_flow_init: {lines}")
+        _count_reset()
+        shares = {name: solve(path)[0] for name, path in (("source", source), ("grown", grown))}
+        k1 += _counts()[0]
+        share_gap = abs(shares["grown"]["valid_fraction"] - shares["source"]["valid_fraction"])
+        check(share_gap <= GROW_SHARE_GAP, f"grown vs source valid shares: {shares}")
+        report["grow_flow_init"].update(source=f"blocks 0-{GROW_FROM - 1} of {os.path.basename(SHIPPED)}",
+                                        source_export_seconds=source_s, max_abs_dnll=d_nll, max_abs_dnorm=d_norm,
+                                        exact=shares, share_gap=share_gap, share_gap_bound=GROW_SHARE_GAP)
+
+        export = os.path.join(tmp, "export", "panda__full_sigmoid.npz")  # the registry's 13.0 mm gate
+        lines, _ = tool("export_from_checkpoint", export_from_checkpoint.main, [
+            "--ckpt_dir", os.path.join(run_dir, "checkpoints"), "--robot_name", "panda", "--out", export,
+            "--nb_nodes", str(hp.nb_nodes), "--dim_latent_space", str(hp.dim_latent_space), "--sigmoid_on_output",
+            "--disable_softflow", "--dtype", "float16", "--device", dev.type])
+        _count_reset()
+        exported, header = solve(export)
+        k1 += _counts()[0]
+        check(lines[0].startswith("deploy gate: 13.0 mm (registry 13.0)") and header["quality_gate_mm"] == 13.0
+              and header["quality"]["val_l2_error_mm"] <= 13.0 and exported["valid_fraction"] >= 0.99,
+              f"export_from_checkpoint: {lines}, {header}, {exported}")
+        report["export_from_checkpoint"].update(quality=header["quality"], global_step=header["global_step"],
+                                                exact=exported)
+
+        stamped = os.path.join(tmp, "stamp", "panda__full_sigmoid.npz")
+        os.makedirs(os.path.dirname(stamped))
+        shutil.copy(SHIPPED, stamped)
+        models_dir, config.MODELS_DIR = config.MODELS_DIR, os.path.dirname(stamped)  # the registry serves the copy
+        try:
+            lines, a = tool("stamp_quality_headers", stamp_quality_headers.main, [
+                "--model_name", MODEL, "--npz", stamped, "--gate_mm", str(STAMP_GATE_MM), "--device", dev.type])
+        finally:
+            config.MODELS_DIR = models_dir
+        header = read_deploy_header(stamped)
+        check(a == 2 * hp.nb_nodes and header["quality_gate_mm"] == STAMP_GATE_MM
+              and header["quality"]["val_l2_error_mm"] <= STAMP_GATE_MM
+              and "ikflow_tpu_torch.scripts_dev.stamp_quality_headers" in header["quality_source"],
+              f"stamp_quality_headers: K1 {a}, {header}")
+        report["stamp_quality_headers"].update(
+            val_l2_error_mm=header["quality"]["val_l2_error_mm"],
+            shipped_header_val_l2_error_mm=shipped_header["quality"]["val_l2_error_mm"])
+
+        source_step = shipped_header["global_step"]
+        tool("stamp_warm_start", stamp_warm_start.main, [grown, os.path.basename(source), str(source_step)])
+        ws = read_deploy_header(grown)["warm_start"]
+        check(ws["from"] == os.path.basename(source) and ws["total_steps"] == 2 * source_step, f"warm_start {ws}")
+        report["stamp_warm_start"]["warm_start"] = ws
+    emit("dev_tools", t0, card=smi, **report)
+    return k1
 
 
 def main():
@@ -2846,12 +3158,22 @@ def main():
     # 31-32. The captured programs: the main path on the graphs.
     graph_main = graph_phases(hp, solver, solver_bf16, targets, targets_mb, dev)
 
-    # 33. The trainer's captured programs against its eager path.
+    # 33. The trainer's captured programs against its eager path; its train
+    # run's directory stays until phase 41 exports from its checkpoint.
     with tempfile.TemporaryDirectory(prefix="ikflow_chip_smoke_") as tmp:
         training_graph = phase_graphs_training(hp, robot, ds, targets, exact_kw, dev, tmp)
 
-    # 34-39. The analysis studies on the graphs.
-    analysis_launches = analysis_phases(solver, cli_accuracy)
+        # 34-39. The analysis studies on the graphs.
+        analysis_launches = analysis_phases(solver, cli_accuracy)
+
+        # 40. The data-parallel trainer on the graphs.
+        mesh_graph = phase_graphs_training_mesh(hp, robot, dev, tmp, smi)
+
+        # 41. The artifact tools.
+        _count_reset()
+        dev_tools_launches = phase_dev_tools(hp, robot, targets, exact_kw, dev, os.path.join(tmp, "run_warm_graphs"),
+                                             smi)
+        check(_counts()[1] == 0, "the artifact tools ran K1'")
 
     print(json.dumps({"kernels": [
         kernel_entry("fused_mlp", "bf16_hidden=False: fp32 contract, hidden layers 3xTF32 on wgmma m64n128k8 "
@@ -2860,7 +3182,8 @@ def main():
                      "ikflow_tpu_torch/csrc/fused_mlp.cu", graph_main["fused_mlp"][0],
                      max(max_err, max_err_p, max_err_t, max_err_m, max_err_mesh), headline,
                      training_launches["fused_mlp"], cli_launches, mesh_launches["fused_mlp"], main_path_launches,
-                     graph_main["fused_mlp"][1], training_graph["fused_mlp"], analysis_launches["fused_mlp"]),
+                     graph_main["fused_mlp"][1], training_graph["fused_mlp"], analysis_launches["fused_mlp"],
+                     mesh_graph["fused_mlp"], dev_tools_launches),
         kernel_entry("fused_mlp_bf16", "bf16_hidden=True: hidden layers bf16 on wgmma m64n128k16 with fp32 "
                      "accumulation, 64-row tiles split over 8-CTA clusters, weights packed once and streamed by "
                      "cp.async.bulk into a 4-slot mbarrier ring, activations pulled from the peers over DSMEM by a "
@@ -2869,7 +3192,7 @@ def main():
                      max(max_err_b, max_err_pb, max_err_tb, max_err_mesh_b),
                      headline_b, training_launches["fused_mlp_bf16"], 0, mesh_launches["fused_mlp_bf16"],
                      main_path_launches_bf16, graph_main["fused_mlp_bf16"][1], training_graph["fused_mlp_bf16"],
-                     analysis_launches["fused_mlp_bf16"]),
+                     analysis_launches["fused_mlp_bf16"], mesh_graph["fused_mlp_bf16"], 0),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"total_seconds": round(time.perf_counter() - t_all, 3)}), flush=True)

@@ -9,7 +9,8 @@ directory, ``--init_npz`` to warm-start from a deploy artifact, and
 group of a multi-process launch (``parallel.mesh.initialize_multihost``) and
 splits each batch over a mesh of every CUDA device (with ``--device cpu``,
 a mesh of the CPU); as in the JAX package, it never builds the dataset on
-the device.
+the device. On a card the steps and validation replay captured CUDA graphs,
+with ``--data_parallel`` too.
 """
 
 from __future__ import annotations

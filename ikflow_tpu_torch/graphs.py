@@ -1,5 +1,6 @@
 """Captured CUDA graphs of the serving programs (one cache per solver) and
-of the training programs (one cache per training run, ``Trainer.graph_scope``).
+of the training programs (one cache per training run, ``Trainer.graph_scope``;
+a data-parallel run keeps one more per other card, ``GraphCache.on``).
 
 The counterpart of the JAX solver's ``_jit_cache``, where each serving entry
 point is compiled once per shape by ``jax.jit``: here a program (one exact
@@ -38,7 +39,7 @@ from __future__ import annotations
 import time
 from collections import OrderedDict
 from dataclasses import dataclass
-from typing import Callable, Hashable, Sequence, Tuple
+from typing import Callable, Dict, Hashable, Sequence, Tuple
 
 import torch
 
@@ -69,6 +70,9 @@ class CudaBackend:
         with torch.cuda.device(self.device):
             graph.replay()
 
+    def for_device(self, device: torch.device) -> "CudaBackend":
+        return CudaBackend(device)
+
 
 @dataclass
 class _Entry:
@@ -91,6 +95,7 @@ class GraphCache:
         self.backend = CudaBackend(self.device) if backend is None else backend
         self._entries: "OrderedDict[Hashable, _Entry]" = OrderedDict()
         self._seen: "OrderedDict[Hashable, None]" = OrderedDict()  # called once, run eagerly
+        self._others: Dict[torch.device, "GraphCache"] = {}  # ``on``'s caches of other devices
         self.captures = 0
         self.replays = 0
         self.capture_seconds = 0.0  # host time of every capture
@@ -99,11 +104,27 @@ class GraphCache:
         return len(self._entries)
 
     def clear(self) -> None:
-        """Reset and drop every graph (new parameters make them stale)."""
+        """Reset and drop every graph (new parameters make them stale), with
+        those of ``on``'s caches."""
         for entry in self._entries.values():
             entry.graph.reset()
         self._entries.clear()
         self._seen.clear()
+        for other in self._others.values():
+            other.clear()
+        self._others.clear()
+
+    def on(self, device) -> "GraphCache":
+        """The cache of the same run's programs on ``device``: this one for
+        its own device, else one made on first use (its backend's
+        ``for_device``) and emptied with this one. A data-parallel step
+        captures each card's part on that card."""
+        device = torch.device(device)
+        if device == self.device:
+            return self
+        if device not in self._others:
+            self._others[device] = GraphCache(device, backend=self.backend.for_device(device))
+        return self._others[device]
 
     def run(self, key: Hashable, fn: Callable, inputs: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
         """``fn(*inputs)`` (a tensor or a tuple of tensors): eagerly on the

@@ -92,11 +92,30 @@ class DeployQualityError(ValueError):
     never ship silently."""
 
 
+# A deploy artifact is one ``.npz``: the header as JSON bytes under
+# ``__header__`` and one array per parameter leaf, compressed.
+
+def _header(z) -> Dict:
+    return json.loads(bytes(z["__header__"]).decode())
+
+
+def read_artifact(path: str) -> Tuple[Dict, Dict[str, np.ndarray]]:
+    """(header, arrays as stored) of a deploy artifact."""
+    with np.load(path) as z:
+        return _header(z), {k: z[k] for k in z.files if k != "__header__"}
+
+
+def write_artifact(path: str, header: Dict, arrays: Dict[str, np.ndarray]) -> None:
+    """Write a deploy artifact at ``path`` (replacing it): ``header`` and
+    ``arrays`` as stored."""
+    np.savez_compressed(path, __header__=np.frombuffer(json.dumps(header).encode(), dtype=np.uint8), **arrays)
+
+
 def read_deploy_header(path: str) -> Optional[Dict]:
     """Header dict of a deploy artifact, or None if unreadable or absent."""
     try:
         with np.load(path) as z:
-            return json.loads(bytes(z["__header__"]).decode())
+            return _header(z)
     except (OSError, KeyError, ValueError, zipfile.BadZipFile):
         return None
 
@@ -197,7 +216,7 @@ def export_deploy(
     flat = flatten_params(params)
     if dtype is not None:
         flat = {k: v.astype(dtype) for k, v in flat.items()}
-    np.savez_compressed(path, __header__=np.frombuffer(json.dumps(header).encode(), dtype=np.uint8), **flat)
+    write_artifact(path, header, flat)
     return path
 
 
@@ -214,7 +233,7 @@ def load_deploy(path: str, param_shapes, device="cuda") -> Tuple[Any, Dict]:
     read in place from the ``.npz`` and cast to fp32. Returns (params,
     header)."""
     with np.load(path) as z:
-        header = json.loads(bytes(z["__header__"]).decode())
+        header = _header(z)
         files = set(z.files)
 
         def leaf(key, shape):

@@ -1,7 +1,7 @@
 """Training loop: the update step, validation, step-based log / eval /
 checkpoint cadences, and JSONL metrics.
 
-Port of ``ikflow_tpu/training/trainer.py`` for one device:
+Port of ``ikflow_tpu/training/trainer.py``:
 
 - ``_step``: loss, ``torch.autograd`` gradients, gradient stats, clipping,
   optimizer and schedule, with the ``tr/*`` metrics;
@@ -27,7 +27,12 @@ count-dependent scalars are filled before each replay
 numbers. A key's first call runs eagerly, its second captures. A capture or
 replay error raises: nothing falls back to the eager path. ``use_graphs =
 False`` (on a trainer or the class) runs the eager bodies on the card; the
-CPU and a ``mesh`` trainer always run them.
+CPU always runs them. Every step is ``_MeshStep``'s programs (without a
+mesh, those of one entry taking the whole batch), so a ``mesh`` trainer on
+a card captures too: where every entry lies on one card, one graph holds the
+whole step; otherwise each card replays its entries' losses and gradients,
+and the first entry's card the sum and the update, with the copies across
+cards (and the all-reduce across ranks) between the replays.
 
 The training forward runs the plain subnet under autograd (with
 ``bf16_hidden``, its bf16 plain version, as the JAX package's
@@ -38,14 +43,15 @@ caller's tensors untouched.
 
 With a ``mesh`` (``parallel.mesh``), each step is data-parallel: the noise is
 drawn over the whole batch, each mesh entry takes its slice of the batch and
-the noise and runs the loss on its own copy of the parameters (entries on the
-first entry's device use its tensors), and one backward pass brings every
-entry's gradient, weighted by its share of the batch, onto the first entry,
+the noise and runs the loss on its card's copy of the parameters (entries
+on the first entry's card use its tensors), and each card's gradient,
+weighted by its entries' share of the batch, is added on the first entry,
 so the sum is the full batch's mean gradient. Under a process group of more
 than one process each rank takes its slice of the batch first, and the flat
 gradient is all-reduced across ranks. One optimizer update runs on the first
-entry; the copies are made from it again at the next step. Validation runs
-on the first entry.
+entry; the other cards' replicas are refreshed from it at the next step.
+With the resident split each card that holds entries keeps a copy of it.
+Validation runs on the first entry.
 """
 
 from __future__ import annotations
@@ -113,6 +119,18 @@ def grad_stats(grads: Sequence[torch.Tensor]) -> Dict[str, torch.Tensor]:
     }
 
 
+def _apply(optimizer: Optimizer, loss: torch.Tensor, metrics: Dict[str, torch.Tensor], grads,
+           with_metrics: bool) -> Dict[str, torch.Tensor]:
+    """A step's end: its metrics (only ``tr/loss`` without
+    ``with_metrics``), then the optimizer's update (clipping in place)."""
+    out = {"tr/loss": loss}
+    if with_metrics:
+        out.update(metrics)
+        out.update(grad_stats(grads))
+    optimizer.update(grads)
+    return out
+
+
 def _trainable(params):
     """A copy of ``params`` whose leaves are fresh tensors that need grads."""
     return tree_map(lambda t: t.detach().clone().requires_grad_(True), params)
@@ -123,8 +141,8 @@ def _detached(params):
 
 
 class Trainer:
-    # On a card, run the update step and validation as captured CUDA graphs;
-    # False runs their eager bodies there. The CPU and a mesh always do.
+    # On a card, run the update step and validation as captured CUDA graphs,
+    # over a mesh too; False runs their eager bodies there. The CPU always does.
     use_graphs = True
 
     def __init__(
@@ -185,12 +203,7 @@ class Trainer:
         metrics, clipping and the optimizer's update at the scalars its
         ``prepare`` filled."""
         loss, metrics, grads = self.loss_and_grads(params, optimizer.params, q, poses, noise=noise)
-        out = {"tr/loss": loss}
-        if with_metrics:
-            out.update(metrics)
-            out.update(grad_stats(grads))
-        optimizer.update(grads)
-        return out
+        return _apply(optimizer, loss, metrics, grads, with_metrics)
 
     def _noise_inputs(self, noise: Noise) -> Tuple[torch.Tensor, ...]:
         return tuple(t for t in noise if t is not None)
@@ -199,35 +212,35 @@ class Trainer:
         it = iter(inputs)
         return tuple(next(it) if drawn else None for drawn in self._noise_slots)
 
-    def _step_program(self, params, optimizer: Optimizer, samples: Optional[torch.Tensor] = None,
-                      endpoints: Optional[torch.Tensor] = None, with_metrics: bool = True) -> Callable:
-        """The update step as a program of tensors only. With the resident
-        split (``samples``, ``endpoints``): ``(idx, *noise) -> (loss,)``, the
-        batch gathered inside; else ``(q, poses, *noise) ->`` the
-        ``STEP_METRICS`` (only ``tr/loss`` without ``with_metrics``). The
-        noise is the drawn entries of (pad, c, v)."""
-        def finish(q, poses, noise):
-            out = self._update(params, optimizer, q, poses, self._noise(noise), with_metrics)
-            return tuple(out[k] for k in STEP_METRICS if k in out)
-
-        if samples is None:
-            return lambda q, poses, *noise: finish(q, poses, noise)
-        return lambda idx, *noise: finish(samples.index_select(0, idx), endpoints.index_select(0, idx), noise)
+    def _stepper(self, key: tuple, params, optimizer: Optimizer, samples: Optional[torch.Tensor] = None,
+                 endpoints: Optional[torch.Tensor] = None, with_metrics: bool = True) -> Callable:
+        """One update step, the optimizer's host half included, as
+        ``step(*inputs) ->`` the ``STEP_METRICS`` (only ``tr/loss`` without
+        ``with_metrics``): ``_MeshStep``'s programs through the run's graphs
+        of each card (one program on one device). With the resident split
+        (``samples``, ``endpoints``) the inputs are ``(idx, *noise)``, the
+        batch gathered inside; else ``(q, poses, *noise)``. The noise is the
+        drawn entries of (pad, c, v)."""
+        return _MeshStep(self, params, optimizer.params, samples, endpoints).stepper(key, optimizer, with_metrics)
 
     def _run(self, key: tuple, program: Callable, inputs: Sequence[torch.Tensor],
-             optimizer: Optional[Optimizer] = None) -> Tuple[torch.Tensor, ...]:
+             optimizer: Optional[Optimizer] = None, device: Optional[torch.device] = None) -> Tuple[torch.Tensor, ...]:
         """``program(*inputs)``, after the optimizer's host half where given:
-        through the run's graph of ``key`` on a card, else eagerly."""
+        through the run's graph of ``key`` on ``device`` (default the
+        trainer's) on a card, else eagerly. The key is completed with the
+        trainer's devices (the mesh's, in order)."""
         if optimizer is not None:
             optimizer.prepare()
         if self._graphs is None:
             return program(*inputs)
-        return self._graphs.run(key + (self.device,), program, inputs)
+        devices = (self.device,) if self.mesh is None else self.mesh.devices
+        return self._graphs.on(self.device if device is None else device).run(key + devices, program, inputs)
 
     def _new_graphs(self) -> Optional[GraphCache]:
         """A cache for one run's programs, or None where they run eagerly:
-        on the CPU, with ``use_graphs`` off, or over a mesh."""
-        if not self.use_graphs or self.mesh is not None or self.device.type != "cuda":
+        on the CPU or with ``use_graphs`` off. A mesh's first entry holds
+        it; the parts of a step on other cards go to its ``on`` caches."""
+        if not self.use_graphs or self.device.type != "cuda":
             return None
         return GraphCache(self.device)
 
@@ -249,39 +262,14 @@ class Trainer:
     def loss_and_grads(self, params, leaves, q: torch.Tensor, poses: torch.Tensor,
                        generator: Optional[torch.Generator] = None, noise: Optional[Noise] = None):
         """(loss, ``tr/output_*`` metrics, gradients w.r.t. ``leaves``) of one
-        batch: on the trainer's device, or split over its mesh (and across
-        ranks) with the full batch's mean gradient on the first entry."""
-        if self.mesh is None:
-            loss, metrics = self.loss_fn(params, q, poses, generator=generator, noise=noise)
-            return loss.detach(), metrics, torch.autograd.grad(loss, leaves)
+        batch, eagerly: on the trainer's device, or split over its mesh (and
+        across ranks) with the full batch's mean gradient on the first entry."""
         if noise is None:
             if generator is None:
                 raise ValueError("pass a generator or the noise")
             noise = self.loss_fn.draw(q, generator)
-        world, rank = process_world()
-        total = q.shape[0]
-        per_rank = total // world
-        bounds = [rank * per_rank + b for b in split_bounds(per_rank, self.mesh.size)]
-        loss, zs = 0.0, []
-        for k, dev in enumerate(self.mesh.devices):
-            a, b = bounds[k], bounds[k + 1]
-            take = lambda t: None if t is None else t[a:b].to(dev)  # noqa: E731
-            replica = tree_map(lambda t: t.to(dev), params)
-            z, logdet = self.loss_fn.latent(replica, take(q), take(poses), tuple(take(t) for t in noise))
-            shard_loss = torch.mean(0.5 * torch.sum(z * z, dim=1) - logdet) * ((b - a) / total)
-            loss = loss + shard_loss.to(self.device)
-            zs.append(z.detach().to(self.device))
-        grads = torch.autograd.grad(loss, leaves)
-        loss = loss.detach()
-        if world > 1:
-            import torch.distributed as dist
-
-            flat = torch.cat([g.reshape(-1) for g in grads] + [loss.reshape(1)])
-            dist.all_reduce(flat)
-            parts = torch.split(flat, [g.numel() for g in grads] + [1])
-            grads = tuple(p.view_as(g) for p, g in zip(parts, grads))
-            loss = parts[-1].reshape(())
-        return loss, output_metrics(torch.cat(zs), loss), grads
+        loss, z, grads = _MeshStep(self, params, leaves).gradients((q, poses) + self._noise_inputs(noise))
+        return loss, output_metrics(z, loss), grads
 
     # ------------------------------------------------------------------
     def _log(self, step: int, metrics: Dict) -> None:
@@ -380,8 +368,8 @@ class Trainer:
             samples = torch.as_tensor(dataset.samples_tr, device=dev)
             endpoints = torch.as_tensor(dataset.endpoints_tr, device=dev)
             n_data = dataset.n_train
-            program = self._step_program(params, optimizer, samples, endpoints, with_metrics=False)
-            key = ("fit_on_device", cfg.batch_size, False)
+            step_fn = self._stepper(("fit_on_device", cfg.batch_size, False), params, optimizer, samples, endpoints,
+                                    with_metrics=False)
             batch = samples.new_empty((cfg.batch_size, samples.shape[1]))  # the shape of the noise's draws
             last_metrics: Dict = {}
             step = start_step
@@ -392,7 +380,7 @@ class Trainer:
                 for i in range(steps_per_call):
                     idx = torch.randint(0, n_data, (cfg.batch_size,), generator=gen, device=dev)
                     noise = self._noise_inputs(self.loss_fn.draw(batch, gen))
-                    losses[i] = self._run(key, program, (idx,) + noise, optimizer)[0]
+                    losses[i] = step_fn(idx, *noise)[0]
                 mean_loss, last_loss = torch.stack([losses.mean(), losses[-1]]).cpu().tolist()
                 step += steps_per_call
                 dt = time.time() - t0
@@ -426,7 +414,7 @@ class Trainer:
         with self.graph_scope():
             cfg, dev = self.config, self.device
             batches = iterate_batches(dataset, cfg.batch_size, [cfg.seed, _STREAM_BATCHES, start_step])
-            program = self._step_program(params, optimizer)
+            step_fn = self._stepper(("fit", cfg.batch_size, True), params, optimizer)
             last_metrics: Dict = {}
             t_window = time.time()
             window_steps = 0
@@ -435,8 +423,7 @@ class Trainer:
                 q = torch.as_tensor(q, device=dev)
                 poses = torch.as_tensor(poses, device=dev)
                 noise = self._noise_inputs(self.loss_fn.draw(q, gen))
-                metrics = dict(zip(STEP_METRICS, self._run(("fit", q.shape[0], True), program, (q, poses) + noise,
-                                                           optimizer)))
+                metrics = dict(zip(STEP_METRICS, step_fn(q, poses, *noise)))
                 window_steps += 1
                 if cfg.log_every and step % cfg.log_every == 0:
                     values = torch.stack(list(metrics.values())).cpu().tolist()
@@ -457,3 +444,189 @@ class Trainer:
             if checkpoint_dir:
                 self._checkpoint(checkpoint_dir, cfg.n_steps, params, optimizer)
             return _detached(params), dict(last_metrics, step=cfg.n_steps)
+
+
+class _MeshStep:
+    """The update step over one run's parameters, as programs of tensors that
+    the run's graphs capture (the eager path runs the same programs, so the
+    two equal bit for bit). A trainer without a mesh is a mesh of its one
+    device and one rank, whose one entry takes the whole batch unweighted:
+    its step is the first card's program alone, the unsharded loss, gradients
+    and update. Over a mesh the step is data-parallel:
+
+    - per card of the mesh other than the first entry's: its entries' shares
+      of the loss, their gradients on the card's replica of the parameters,
+      and their latents, into one flat buffer on that card;
+    - on the first entry's card: its own entries' (on the parameters
+      themselves), plus each other card's buffer copied there; with one
+      rank, then the metrics, clipping and the optimizer's update, so that
+      where every entry lies on one card this one program is the whole step;
+    - with several ranks, the update as a program of its own, after the
+      all-reduce of the flat gradient and loss.
+
+    Between the programs run the copies across cards (each replica refreshed
+    from the parameters, the step's inputs sent to each card, each card's
+    buffer sent to the first) and the all-reduce. With the resident split
+    each card gathers its entries' rows from its own copy of it."""
+
+    def __init__(self, trainer: Trainer, params, leaves, samples: Optional[torch.Tensor] = None,
+                 endpoints: Optional[torch.Tensor] = None):
+        self.trainer = trainer
+        self.devices = (trainer.device,) if trainer.mesh is None else trainer.mesh.devices
+        self.params, self.leaves = params, list(leaves)
+        self.first = self.devices[0]
+        self.cards = list(dict.fromkeys(self.devices))  # in the order of their first entry
+        self.replicas = {card: _trainable(tree_map(lambda t, c=card: t.to(c), params)) for card in self.cards[1:]}
+        self.split = None if samples is None else {c: (samples.to(c), endpoints.to(c)) for c in self.cards}
+        self.world, self.rank = (1, 0) if trainer.mesh is None else process_world()
+        self._sizes = [t.numel() for t in self.leaves]
+        self._layouts: Dict[int, tuple] = {}
+
+    def _layout(self, total: int):
+        """For a batch of ``total`` rows (every rank's): per card its entries'
+        (index, first row, end row); per other card its buffer and the copy
+        of it on the first card; with several ranks, the first card's flat
+        gradient and loss and its latents."""
+        if total not in self._layouts:
+            per_rank = total // self.world
+            bounds = [self.rank * per_rank + b for b in split_bounds(per_rank, len(self.devices))]
+            entries = {card: [] for card in self.cards}
+            for k, card in enumerate(self.devices):
+                entries[card].append((k, bounds[k], bounds[k + 1]))
+            n_grad, D, dtype = sum(self._sizes), self.trainer.flow.D, self.leaves[0].dtype
+            sent = {}
+            for card in self.cards[1:]:
+                n = n_grad + 1 + D * sum(b - a for _, a, b in entries[card])
+                sent[card] = (torch.empty(n, dtype=dtype, device=card), torch.empty(n, dtype=dtype, device=self.first))
+            reduced = None
+            if self.world > 1:
+                reduced = (torch.empty(n_grad + 1, dtype=dtype, device=self.first),
+                           torch.empty((per_rank, D), dtype=dtype, device=self.first))
+            self._layouts[total] = (entries, sent, reduced)
+        return self._layouts[total]
+
+    def _losses(self, card, entries, inputs, total: int):
+        """(loss, {entry: latents}, gradients) of ``card``'s entries, on the
+        parameters for the first card, else on the card's replica. Each
+        entry's loss is weighted by its share of the whole batch (an entry
+        that takes the whole batch is not)."""
+        tr = self.trainer
+        if self.split is None:
+            q, poses, *noise = inputs
+        else:
+            idx, *noise = inputs
+        noise = tr._noise(noise)
+        params = self.params if card == self.first else self.replicas[card]
+        loss, zs = None, {}
+        for k, a, b in entries[card]:
+            if self.split is None:
+                qk, pk = q[a:b], poses[a:b]
+            else:
+                samples, endpoints = self.split[card]
+                qk, pk = samples.index_select(0, idx[a:b]), endpoints.index_select(0, idx[a:b])
+            z, logdet = tr.loss_fn.latent(params, qk, pk, tuple(None if t is None else t[a:b] for t in noise))
+            term = torch.mean(0.5 * torch.sum(z * z, dim=1) - logdet)
+            if b - a != total:
+                term = term * ((b - a) / total)
+            loss = term if loss is None else loss + term
+            zs[k] = z.detach()
+        grads = torch.autograd.grad(loss, self.leaves if card == self.first else tree_leaves(params))
+        return loss.detach(), zs, grads
+
+    def _card_program(self, card, total: int) -> Callable:
+        entries, sent, _ = self._layout(total)
+
+        def program(*inputs):
+            loss, zs, grads = self._losses(card, entries, inputs, total)
+            sent[card][0].copy_(torch.cat([g.reshape(-1) for g in grads] + [loss.reshape(1)]
+                                          + [zs[k].reshape(-1) for k, _, _ in entries[card]]))
+            return ()
+
+        return program
+
+    def _send(self, run: Callable, key: tuple, inputs: Sequence[torch.Tensor], total: int) -> None:
+        """Each other card's part of the step through ``run``, between the
+        copies that feed it and the copy of its buffer to the first card."""
+        _, sent, _ = self._layout(total)
+        for card in self.cards[1:]:
+            with torch.no_grad():
+                for r, p in zip(tree_leaves(self.replicas[card]), self.leaves):
+                    r.copy_(p)
+            run(key + ("card",), self._card_program(card, total), tuple(x.to(card) for x in inputs), device=card)
+            sent[card][1].copy_(sent[card][0])
+
+    def _gathered(self, inputs, total: int):
+        """(loss, {entry: latents}, gradients) of this rank's whole batch on
+        the first card: its own entries' plus what each other card sent."""
+        entries, sent, _ = self._layout(total)
+        loss, zs, grads = self._losses(self.first, entries, inputs, total)
+        n_grad, D = sum(self._sizes), self.trainer.flow.D
+        for card in self.cards[1:]:
+            got = sent[card][1]
+            grads = tuple(g + p.view_as(g) for g, p in zip(grads, torch.split(got[:n_grad], self._sizes)))
+            loss = loss + got[n_grad]
+            at = n_grad + 1
+            for k, a, b in entries[card]:
+                zs[k] = got[at: at + D * (b - a)].view(b - a, D)
+                at += D * (b - a)
+        return loss, zs, grads
+
+    def _share(self, reduced, loss, zs, grads) -> None:
+        flat, z = reduced
+        flat.copy_(torch.cat([g.reshape(-1) for g in grads] + [loss.reshape(1)]))
+        z.copy_(torch.cat([zs[k] for k in sorted(zs)]))
+
+    def _reduced(self, reduced):
+        flat, z = reduced
+        parts = torch.split(flat, self._sizes + [1])
+        return parts[-1].reshape(()), {0: z}, tuple(p.view_as(t) for p, t in zip(parts, self.leaves))
+
+    def gradients(self, inputs: Sequence[torch.Tensor]):
+        """Eagerly: (loss, latents, gradients) of the full batch (every
+        rank's mean) on the first card; inputs ``(q, poses, *noise)``."""
+        import torch.distributed as dist
+
+        total = inputs[0].shape[0]
+        self._send(lambda key, program, xs, device: program(*xs), (), inputs, total)
+        loss, zs, grads = self._gathered(inputs, total)
+        reduced = self._layout(total)[2]
+        if reduced is not None:
+            self._share(reduced, loss, zs, grads)
+            dist.all_reduce(reduced[0])
+            loss, zs, grads = self._reduced(reduced)
+        return loss, torch.cat([zs[k] for k in sorted(zs)]), grads
+
+    def stepper(self, key: tuple, optimizer: Optimizer, with_metrics: bool) -> Callable:
+        """``Trainer._stepper``'s step over the mesh, its programs run
+        through the trainer's ``_run`` under ``key``."""
+        import torch.distributed as dist
+
+        tr = self.trainer
+
+        def finish(loss, zs, grads):
+            metrics = output_metrics(torch.cat([zs[k] for k in sorted(zs)]), loss) if with_metrics else {}
+            out = _apply(optimizer, loss, metrics, grads, with_metrics)
+            return tuple(out[k] for k in STEP_METRICS if k in out)
+
+        def first_program(total, reduced):
+            def program(*inputs):
+                gathered = self._gathered(inputs, total)
+                if reduced is None:
+                    return finish(*gathered)
+                self._share(reduced, *gathered)
+                return ()
+
+            return program
+
+        def step(*inputs):
+            optimizer.prepare()
+            total = inputs[0].shape[0]
+            reduced = self._layout(total)[2]
+            self._send(tr._run, key, inputs, total)
+            out = tr._run(key + ("first",), first_program(total, reduced), inputs)
+            if reduced is None:
+                return out
+            dist.all_reduce(reduced[0])
+            return tr._run(key + ("update",), lambda: finish(*self._reduced(reduced)), ())
+
+        return step

@@ -243,10 +243,9 @@ def test_draws_in_graph_order_equal_generator_draws():
 
     p = _trainable(params)
     opt = tr.make_optimizer(p)
-    program = tr._step_program(p, opt, samples, endpoints, with_metrics=False)
-    opt.prepare()
+    step = tr._stepper(("window", 32), p, opt, samples, endpoints, with_metrics=False)
     state = g.get_state()
-    (loss,) = program(idx2, *noise)
+    (loss,) = step(idx2, *noise)
     assert opt.count == 1 and torch.equal(g.get_state(), state)
     assert torch.equal(loss, loss_out.detach())
 
@@ -275,15 +274,14 @@ def test_window_with_jax_draws_matches_jax_scan():
     tr = Trainer(flow, get_robot("panda"), TrainConfig(batch_size=B), device=CPU)
     p = _trainable(params)
     opt = tr.make_optimizer(p)
-    program = tr._step_program(p, opt, torch.from_numpy(ds.samples_tr), torch.from_numpy(ds.endpoints_tr),
-                               with_metrics=False)
-    cache = GraphCache(CPU, backend=StepStub())
+    cache = tr._graphs = GraphCache(CPU, backend=StepStub())
+    step = tr._stepper(("window",), p, opt, torch.from_numpy(ds.samples_tr), torch.from_numpy(ds.endpoints_tr),
+                       with_metrics=False)
     losses = []
     for _ in range(S):  # the scan body's draws
         key, kb, kl = jax.random.split(key, 3)
         idx = torch.from_numpy(np.asarray(jax.random.randint(kb, (B,), 0, ds.n_train)).astype(np.int64))
-        opt.prepare()
-        losses.append(float(cache.run("window", program, (idx,) + tr._noise_inputs(jax_noise(kl, B, flow)))[0]))
+        losses.append(float(step(idx, *tr._noise_inputs(jax_noise(kl, B, flow)))[0]))
     assert cache.captures == 1 and cache.replays == S - 1
     np.testing.assert_allclose(np.mean(losses), jmean, rtol=1e-5, atol=1e-7)
     np.testing.assert_allclose(losses[-1], jlast, rtol=1e-5, atol=1e-7)
@@ -395,9 +393,9 @@ def test_mesh_and_cpu_never_enter_a_cache(monkeypatch):
         assert tr.use_graphs and tr._new_graphs() is None
         tr.fit_on_device(params, ds, steps_per_call=3)
         tr.fit(params, ds)
-    # A mesh never captures, on a card's device too.
+    # On a card's device a mesh gets the run's cache, as one device does.
     mesh.device = torch.device("cuda")
-    assert mesh._new_graphs() is None
+    assert isinstance(mesh._new_graphs(), GraphCache)
 
 
 # --------------------------------------------------------------------------
